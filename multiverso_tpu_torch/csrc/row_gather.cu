@@ -1,0 +1,83 @@
+// K2 row_gather: out[i, :n_col] = data[ids[i], :n_col].
+//
+// Replaces the reference's MatrixServer._gather
+// (multiverso_tpu/tables/matrix_table.py:2760-2764), the jitted
+// `data.at[ids].get(mode="fill", fill_value=0)[..., :n_col]`. Ids in
+// [-rows, -1] wrap to the end of the table as JAX's indexing does; any
+// other out-of-range id (the pad sentinel `rows` among them) reads a
+// zero row.
+//
+// Bound on the card: bytes. Each output row is one read and one write of
+// n_col floats plus a 4-byte id, no arithmetic. One warp per output row
+// keeps the 32 lanes on one contiguous row: at n_col = 128 each lane
+// moves exactly one 16-byte float4, so every load and store is a full
+// 512-byte coalesced transaction.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 256;  // 8 warps, 8 rows per block
+
+__device__ __forceinline__ int64_t wrap_id(int32_t raw, int64_t rows) {
+  int64_t id = raw;
+  if (id < 0) id += rows;
+  return (id >= 0 && id < rows) ? id : -1;
+}
+
+__global__ void row_gather_vec4(const float* __restrict__ data, int64_t rows,
+                                int64_t stride,
+                                const int32_t* __restrict__ ids, int64_t k,
+                                float* __restrict__ out, int n_col) {
+  const int64_t row = (blockIdx.x * (int64_t)kThreads + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (row >= k) return;
+  const int64_t id = wrap_id(ids[row], rows);
+  const int nv = n_col >> 2;
+  float4* dst = reinterpret_cast<float4*>(out + row * n_col);
+  if (id < 0) {
+    for (int c = lane; c < nv; c += 32) dst[c] = make_float4(0.f, 0.f, 0.f, 0.f);
+    return;
+  }
+  const float4* src = reinterpret_cast<const float4*>(data + id * stride);
+  for (int c = lane; c < nv; c += 32) dst[c] = __ldg(src + c);
+}
+
+__global__ void row_gather_scalar(const float* __restrict__ data,
+                                  int64_t rows, int64_t stride,
+                                  const int32_t* __restrict__ ids, int64_t k,
+                                  float* __restrict__ out, int n_col) {
+  const int64_t row = (blockIdx.x * (int64_t)kThreads + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (row >= k) return;
+  const int64_t id = wrap_id(ids[row], rows);
+  float* dst = out + row * n_col;
+  if (id < 0) {
+    for (int c = lane; c < n_col; c += 32) dst[c] = 0.f;
+    return;
+  }
+  const float* src = data + id * stride;
+  for (int c = lane; c < n_col; c += 32) dst[c] = __ldg(src + c);
+}
+
+}  // namespace
+
+extern "C" cudaError_t mv_row_gather(const float* data, int64_t rows,
+                                     int64_t stride, const int32_t* ids,
+                                     int64_t k, float* out, int n_col,
+                                     cudaStream_t stream) {
+  if (k <= 0 || n_col <= 0) return cudaSuccess;
+  const int64_t blocks = (k * 32 + kThreads - 1) / kThreads;
+  const bool vec = (n_col % 4 == 0) && (stride % 4 == 0) &&
+                   (reinterpret_cast<uintptr_t>(data) % 16 == 0) &&
+                   (reinterpret_cast<uintptr_t>(out) % 16 == 0);
+  if (vec) {
+    row_gather_vec4<<<(unsigned)blocks, kThreads, 0, stream>>>(
+        data, rows, stride, ids, k, out, n_col);
+  } else {
+    row_gather_scalar<<<(unsigned)blocks, kThreads, 0, stream>>>(
+        data, rows, stride, ids, k, out, n_col);
+  }
+  return cudaGetLastError();
+}
