@@ -4,7 +4,7 @@ CUDA card.
 
 Phases, each fatal on failure:
 
-1. build the four hand-written kernels from ``multiverso_tpu_torch/csrc``
+1. build the eight hand-written kernels from ``multiverso_tpu_torch/csrc``
    (one ``nvcc`` per source, all started together) and print the build
    time and ``ptxas`` resource usage;
 2. set up the main path at the benchmark's full width: the synthetic
@@ -15,24 +15,45 @@ Phases, each fatal on failure:
    block;
 3. hold every kernel against its plain PyTorch version on the card, at
    the shapes the main path gives it (the corpus for K1, block 0's ids
-   for K2-K4), and time kernel, plain version and — where one PyTorch
-   call computes the same function — that call, with CUDA events;
+   into both tables for K2-K4; K3 bit-exact on deltas rounded to a grid
+   on which every sum is exact in any order), and time kernel, plain
+   version and — where one PyTorch call computes the same function —
+   that call, with torch.profiler; also K4 and K5 with a negative block
+   wider than a thread block, at a small width;
 4. drive the main path — ``train_epoch`` for 8 blocks through the worker
    and server actors — with every launch count set to 0 just before and
    read just after; every kernel must have launched;
 5. check the result: finite losses and rows of the right shapes, and the
    same small input (the topic corpus of the tests) trained on the card
-   and on the CPU with the same draws agreeing per block.
+   and on the CPU with the same draws agreeing per block;
+6. the local pipeline (``Word2Vec`` + ``DeviceCorpusTrainer``, tables
+   whole on the card) on the same corpus, with the PS tables freed
+   first, in the five modes of the reference's bench: skip-gram and
+   CBOW with negative sampling (16384 centers a step, 16 steps a group,
+   neg_block 8), skip-gram and CBOW with hierarchical softmax (8192, 8)
+   and the per-pair quality mode (2048, 32). For each mode: every
+   kernel of its path against its plain version at step 0's shapes,
+   timed as in phase 3 (K1 on the epoch's uniforms, K2 on the step's
+   ids, the step kernel K4-K8, K3 scattering its gradients);
+   2 groups of steps with the launch counts reset just before and read
+   just after (K1, K2, K3 and the step kernel must launch), words/s on
+   the host clock; the same steps under ``torch.profiler`` (device ms a
+   step, the card's busy share); finite losses; and the topic corpus
+   trained on the card and on the CPU with the same draws, loss and
+   both tables agreeing.
 
-Prints one JSON ``kernels`` line, the card's name and power limit, and
+Prints one JSON ``kernels`` line (one entry a path and kernel: ``ps`` or
+``local_<mode>``, with that path's launches), the card's name and
+power limit, and
 as its last line ``{"ok": true, "device": {...}}``. Exits non-zero with
 no result when CUDA is not available or the package is missing.
 
 Usage: ``python3 chip_smoke.py`` (one card). ``--profile DIR`` adds a
 ``torch.profiler`` trace of 8 more blocks (Chrome trace in DIR, the
-device's busy share and the host monitors). ``--cpu-rehearsal`` runs
-phases 2, 4 and 5 at a tiny size on the CPU with the plain versions (no
-kernels, no result line, exit code 3) to check the control flow on a
+device's busy share and the host monitors) and keeps the Chrome trace
+of the local SGNS steps. ``--cpu-rehearsal`` runs phases 2, 4, 5 and 6
+at a tiny size on the CPU with the plain versions (no kernels, no
+timing, no result line, exit code 3) to check the control flow on a
 host without a card.
 """
 
@@ -56,6 +77,26 @@ PEAK_FP32_FLOPS = 67e12
 DIM, WINDOW, NEG, NEG_BLOCK, CENTERS = 128, 5, 5, 8, 32768
 BLOCKS = 8
 REPS = 20
+PS_KERNELS = ("subsample_compact", "row_gather", "row_scatter_add",
+              "banded_sgns_grad")
+
+# The local modes at the reference bench's settings (bench.py:135-149,
+# run_local, run_hs): (mode, config flags, centers a step, steps a
+# group, step kernel, its source, the JAX program it replaces).
+_CSRC = "multiverso_tpu_torch/csrc/"
+_REF = "multiverso_tpu/models/wordembedding/device_train.py:"
+LOCAL_MODES = (
+    ("sgns", dict(neg_block=NEG_BLOCK), 16384, 16, "banded_sgns_grad",
+     _CSRC + "banded_sgns.cu", _REF + "131"),
+    ("cbow", dict(cbow=True, neg_block=NEG_BLOCK), 16384, 16,
+     "banded_cbow_grad", _CSRC + "banded_cbow.cu", _REF + "159"),
+    ("hs_sg", dict(hs=True, negative=0), 8192, 8, "banded_hs_sg_grad",
+     _CSRC + "banded_hs.cu", _REF + "316"),
+    ("hs_cbow", dict(hs=True, cbow=True, negative=0), 8192, 8,
+     "hs_cbow_grad", _CSRC + "banded_hs.cu", _REF + "350"),
+    ("per_pair", dict(per_pair=True), 2048, 32, "pair_offset_grad",
+     _CSRC + "pair_offset.cu", _REF + "233"),
+)
 
 
 def log(msg: str) -> None:
@@ -82,16 +123,21 @@ def time_ms(torch, fn, reps: int = REPS) -> float:
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with tp.profile(activities=[tp.ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total_us = 0.0
-    for evt in prof.key_averages():
-        total_us += float(getattr(evt, "self_device_time_total", 0.0))
-    if total_us <= 0.0:
-        raise RuntimeError("the profiler recorded no device time")
-    return total_us / reps / 1e3
+    # A profiler session now and then records no CUDA activity at all
+    # (seen once in ~70 sessions of one run); trace such a call again.
+    for attempt in range(3):
+        with tp.profile(activities=[tp.ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total_us = 0.0
+        for evt in prof.key_averages():
+            total_us += float(getattr(evt, "self_device_time_total", 0.0))
+        if total_us > 0.0:
+            return total_us / reps / 1e3
+        log(f"[time] the profiler recorded no device time (trace "
+            f"{attempt + 1} of 3)")
+    raise RuntimeError("the profiler recorded no device time")
 
 
 def bound(bytes_moved: float, flops: float = 0.0):
@@ -126,7 +172,7 @@ def setup_main_path(torch, mv, device, workdir: str, sentences: int,
         f"{dictionary.size} words (tables {dictionary.size} x {dim} f32 "
         f"each) | corpus+dictionary {t1 - t0:.1f}s, zoo+tables+trainer "
         f"{time.perf_counter() - t1:.1f}s")
-    return model, trainer
+    return model, trainer, dictionary, tokenized
 
 
 def block0_inputs(torch, trainer):
@@ -149,18 +195,9 @@ def block0_inputs(torch, trainer):
     return u, in_ids, out_ids, pmask
 
 
-def check_kernels(torch, trainer, card: str):
-    """Phase 3: every kernel against its plain version, timed."""
-    from multiverso_tpu_torch.kernels import rows, sgns, subsample
-    corpus = trainer._corpus
-    dev = trainer.device
-    C, B = trainer._C, trainer._B
-    W, K = trainer.config.window, trainer.config.negative
-    D = trainer.config.embedding_size
-    u, in_ids, out_ids, pmask = block0_inputs(torch, trainer)
-    results = []
-
-    # K1 subsample_compact: bit-exact.
+def check_subsample(torch, corpus, u):
+    """K1 on the corpus and the epoch's uniforms ``u``: bit-exact."""
+    from multiverso_tpu_torch.kernels import subsample
     T = corpus.n_tokens
     V = int(corpus.keep.numel())
     got = subsample.subsample_compact(corpus.flat, corpus.sent, corpus.keep,
@@ -176,7 +213,7 @@ def check_kernels(torch, trainer, card: str):
                            torch.nonzero(~mask).reshape(-1)])
         return corpus.flat[order], corpus.sent[order]
 
-    results.append(dict(
+    return dict(
         name="subsample_compact", tol="bit-exact", max_abs_err=float(err),
         ok=err == 0,
         source="multiverso_tpu_torch/csrc/subsample_compact.cu",
@@ -186,7 +223,147 @@ def check_kernels(torch, trainer, card: str):
         plain_ms=time_ms(torch, lambda: subsample.subsample_compact_plain(
             corpus.flat, corpus.sent, corpus.keep, u)),
         library_ms=time_ms(torch, library_partition),
-        bound=bound(T * 4 * 3 + V * 4 + T * 4 * 2 + 4)))
+        bound=bound(T * 4 * 3 + V * 4 + T * 4 * 2 + 4))
+
+
+def check_gather(torch, cases, D: int):
+    """K2 on ``cases``, the step's (table, ids) pairs: bit-exact on
+    every pair; timed on the last (the output table's)."""
+    from multiverso_tpu_torch.kernels import rows
+    err = 0.0
+    for table, ids in cases:
+        g = rows.row_gather(table, ids, D)
+        r = rows.row_gather_plain(table, ids, D)
+        err = max(err, float((g - r).abs().max()))
+    table, ids = cases[-1]
+    k = ids.numel()
+    uniq = int(torch.unique(ids).numel())
+    ids64 = ids.to(torch.int64)
+    return dict(
+        name="row_gather", tol="bit-exact", max_abs_err=err, ok=err == 0.0,
+        source="multiverso_tpu_torch/csrc/row_gather.cu",
+        replaces="multiverso_tpu/tables/matrix_table.py:2761",
+        ms=time_ms(torch, lambda: rows.row_gather(table, ids, D)),
+        plain_ms=time_ms(torch, lambda: rows.row_gather_plain(table, ids,
+                                                              D)),
+        library_ms=time_ms(torch, lambda: table.index_select(0, ids64)),
+        bound=bound(k * 4 + uniq * D * 4 + k * D * 4))
+
+
+def on_grid(torch, table, ids, delta):
+    """``table`` and ``delta`` rounded to the grid 2^-k with k chosen so
+    that every partial sum of scatter-adding ``delta`` into ``table`` is
+    a multiple of 2^-k below 2^(24-k) in magnitude, hence exact in
+    float32: the sum is then the same in any order, and K3 (float
+    atomics) and its plain version must agree bit for bit."""
+    uniq, inv = torch.unique(ids.reshape(-1)[:delta.shape[0]],
+                             return_inverse=True)
+    mass = torch.zeros(uniq.numel(), delta.shape[1], dtype=torch.float64,
+                       device=delta.device)
+    mass.index_add_(0, inv, delta.abs().double())
+    top = float(table.abs().max()) + float(mass.max())
+    # 3 bits of margin for the rounding of the terms themselves.
+    k = 21 - math.ceil(math.log2(max(top, 2.0 ** -60)))
+    grid = 2.0 ** k
+    return torch.round(table * grid) / grid, torch.round(delta * grid) / grid
+
+
+def check_scatter(torch, cases, D: int):
+    """K3 on ``cases``, the step's (table, ids, delta) triples, each
+    rounded ``on_grid``: bit-exact on every triple, duplicate ids and
+    the Zipf head included; timed on the last (the output table's)."""
+    from multiverso_tpu_torch.kernels import rows
+    err, nonzero = 0.0, []
+    for table, ids, delta in cases:
+        base, grid_delta = on_grid(torch, table, ids, delta)
+        nonzero.append(float((grid_delta != 0).float().mean()))
+        a = base.clone()
+        rows.row_scatter_add(a, ids, grid_delta, 1.0)
+        rows.row_scatter_add_plain(base, ids, grid_delta, 1.0)
+        err = max(err, float((a - base).abs().max()))
+        del a, base
+    table, ids, delta = cases[-1]
+    k = ids.numel()
+    uniq = int(torch.unique(ids).numel())
+    ids64 = ids.to(torch.int64)
+    scratch = table.clone()
+    result = dict(
+        name="row_scatter_add",
+        tol=f"bit-exact on grid-rounded deltas ({[round(x, 3) for x in nonzero]}"
+            f" of them nonzero)", max_abs_err=err, ok=err == 0.0,
+        source="multiverso_tpu_torch/csrc/row_scatter_add.cu",
+        replaces="multiverso_tpu/updater/rules.py:94",
+        ms=time_ms(torch, lambda: rows.row_scatter_add(scratch, ids, delta,
+                                                       1.0)),
+        plain_ms=time_ms(torch, lambda: rows.row_scatter_add_plain(
+            scratch, ids, delta, 1.0)),
+        library_ms=time_ms(torch, lambda: scratch.index_add_(0, ids64,
+                                                             delta)),
+        bound=bound(k * 4 + k * D * 4 + 2 * uniq * D * 4))
+    del scratch
+    return result
+
+
+def report(results, card: str, path: str):
+    """Log the checks of ``path``'s kernels; fail on any disagreement."""
+    for r in results:
+        r["path"] = path
+        lib = "n/a" if r["library_ms"] is None else \
+            f"{r['library_ms']:.4f} ms"
+        log(f"[kernel {r['name']} @ {path}] {card} | max_abs_err "
+            f"{r['max_abs_err']:g} ({r['tol']}) "
+            f"{'OK' if r['ok'] else 'FAIL'} | kernel {r['ms']:.4f} ms | "
+            f"plain {r['plain_ms']:.4f} ms | library {lib} | bound "
+            f"{r['bound'][0]:.4f} ms ({r['bound'][1]})")
+    bad = [r["name"] for r in results if not r["ok"]]
+    if bad:
+        raise AssertionError(f"{path}: kernels disagree with their plain "
+                             f"versions: {bad}")
+    return results
+
+
+def check_wide_blocks(torch, device) -> None:
+    """K4 and K5 with a negative block wider than a thread block (B=512
+    centers share their negatives; ``-neg_block`` is a user flag) at a
+    small width, against their plain versions: every center's window
+    count must be formed, not only the first 256."""
+    from multiverso_tpu_torch.kernels import cbow, sgns
+    C, W, K, B, D = 2048, 5, 5, 512, 16
+    gen = torch.Generator(device=device)
+    gen.manual_seed(7)
+    pmask = (torch.rand(C, 2 * W, generator=gen, device=device)
+             < 0.8).float()
+    band = torch.randn(C + 2 * W, D, generator=gen, device=device)
+    v = torch.randn(C, D, generator=gen, device=device)
+    negs = torch.randn(C // B * K, D, generator=gen, device=device)
+    cases = (("banded_sgns_grad", sgns.banded_sgns_grad,
+              sgns.banded_sgns_grad_plain, (v, torch.cat([band, negs]))),
+             ("banded_cbow_grad", cbow.banded_cbow_grad,
+              cbow.banded_cbow_grad_plain, (band, torch.cat([v, negs]))))
+    for name, kernel, plain, rows_in in cases:
+        got = kernel(*rows_in, pmask, W, K, B, -0.025)
+        ref = plain(*rows_in, pmask, W, K, B, -0.025)
+        ok = all(bool(((g - r).abs() <= 1e-5 + 1e-4 * r.abs()).all())
+                 for g, r in zip(got[:2], ref[:2]))
+        ok = ok and float(got[3]) == float(ref[3]) and abs(
+            float(got[2]) - float(ref[2])) <= 1e-5 * abs(float(ref[2]))
+        log(f"[kernel {name}] neg_block {B} > 256 threads, C={C} D={D}: "
+            f"{'OK' if ok else 'FAIL'} (grads |err| <= 1e-5 + 1e-4 "
+            f"|plain|, loss rel err <= 1e-5, counts equal)")
+        if not ok:
+            raise AssertionError(f"{name} disagrees at neg_block {B}")
+
+
+def check_kernels(torch, trainer, card: str):
+    """Phase 3: every kernel of the PS path against its plain version,
+    timed."""
+    from multiverso_tpu_torch.kernels import rows, sgns
+    dev = trainer.device
+    C, B = trainer._C, trainer._B
+    W, K = trainer.config.window, trainer.config.negative
+    D = trainer.config.embedding_size
+    u, in_ids, out_ids, pmask = block0_inputs(torch, trainer)
+    results = [check_subsample(torch, trainer._corpus, u)]
 
     # Tables for K2-K4: random rows (the model's output table is still
     # zero), the main path's heights and width.
@@ -196,50 +373,14 @@ def check_kernels(torch, trainer, card: str):
                            generator=gen, device=dev) * 0.5
     table_out = torch.randn(trainer.model._out_table.num_row, D,
                             generator=gen, device=dev) * 0.5
-
-    # K2 row_gather at the output table's id count: bit-exact.
-    err = 0.0
-    for table, ids in ((table_in, in_ids), (table_out, out_ids)):
-        g = rows.row_gather(table, ids, D)
-        r = rows.row_gather_plain(table, ids, D)
-        err = max(err, float((g - r).abs().max()))
-    k = out_ids.numel()
-    uniq = int(torch.unique(out_ids).numel())
-    ids64 = out_ids.to(torch.int64)
-    results.append(dict(
-        name="row_gather", tol="bit-exact", max_abs_err=err, ok=err == 0.0,
-        source="multiverso_tpu_torch/csrc/row_gather.cu",
-        replaces="multiverso_tpu/tables/matrix_table.py:2761",
-        ms=time_ms(torch, lambda: rows.row_gather(table_out, out_ids, D)),
-        plain_ms=time_ms(torch, lambda: rows.row_gather_plain(
-            table_out, out_ids, D)),
-        library_ms=time_ms(torch, lambda: table_out.index_select(0,
-                                                                 ids64)),
-        bound=bound(k * 4 + uniq * D * 4 + k * D * 4)))
-
-    # K3 row_scatter_add: duplicates sum in a varying order.
-    delta = torch.randn(k, D, generator=gen, device=dev) * 1e-2
-    a = table_out.clone()
-    b = table_out.clone()
-    rows.row_scatter_add(a, out_ids, delta, 1.0)
-    rows.row_scatter_add_plain(b, out_ids, delta, 1.0)
-    err = float((a - b).abs().max())
-    tol3 = 1e-5
-    del a, b
-    scratch = table_out.clone()
-    results.append(dict(
-        name="row_scatter_add", tol=f"max_abs_err <= {tol3:g}",
-        max_abs_err=err, ok=err <= tol3,
-        source="multiverso_tpu_torch/csrc/row_scatter_add.cu",
-        replaces="multiverso_tpu/updater/rules.py:94",
-        ms=time_ms(torch, lambda: rows.row_scatter_add(scratch, out_ids,
-                                                       delta, 1.0)),
-        plain_ms=time_ms(torch, lambda: rows.row_scatter_add_plain(
-            scratch, out_ids, delta, 1.0)),
-        library_ms=time_ms(torch, lambda: scratch.index_add_(0, ids64,
-                                                             delta)),
-        bound=bound(k * 4 + k * D * 4 + 2 * uniq * D * 4)))
-    del scratch
+    results.append(check_gather(torch, ((table_in, in_ids),
+                                        (table_out, out_ids)), D))
+    # K3 with random deltas of the push's size.
+    results.append(check_scatter(torch, (
+        (table_in, in_ids, torch.randn(in_ids.numel(), D, generator=gen,
+                                       device=dev) * 1e-2),
+        (table_out, out_ids, torch.randn(out_ids.numel(), D, generator=gen,
+                                         device=dev) * 1e-2)), D))
 
     # K4 banded_sgns_grad on the block's pulled rows (random tables, so
     # some logits pass +-6).
@@ -274,19 +415,8 @@ def check_kernels(torch, trainer, card: str):
         bound=bound((C * D + urows.numel() + C * 2 * W) * 4
                     + (C * D + urows.numel()) * 4 + 8, flops)))
     del table_in, table_out
-
-    for r in results:
-        lib = "n/a" if r["library_ms"] is None else \
-            f"{r['library_ms']:.4f} ms"
-        log(f"[kernel {r['name']}] {card} | max_abs_err {r['max_abs_err']:g} "
-            f"({r['tol']}) {'OK' if r['ok'] else 'FAIL'} | kernel "
-            f"{r['ms']:.4f} ms | plain {r['plain_ms']:.4f} ms | library "
-            f"{lib} | bound {r['bound'][0]:.4f} ms ({r['bound'][1]})")
-    bad = [r["name"] for r in results if not r["ok"]]
-    if bad:
-        raise AssertionError(f"kernels disagree with their plain "
-                             f"versions: {bad}")
-    return results
+    check_wide_blocks(torch, dev)
+    return report(results, card, "ps")
 
 
 def timed_blocks(trainer, seed: int, blocks: int):
@@ -346,6 +476,25 @@ def report_run(tag: str, card: str, centers: int, run) -> None:
         f"(generation, ms) {[(g, round(ms, 1)) for g, ms in pauses]}")
 
 
+def trace_kernels(prof, trace: str):
+    """(kernel count, busy ms — the union of the kernels' spans, summed
+    kernel ms) of a finished ``torch.profiler`` run, read from its Chrome
+    trace written to ``trace``."""
+    prof.export_chrome_trace(trace)
+    with open(trace) as f:
+        events = json.load(f)
+    events = events.get("traceEvents", events)
+    spans = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+                   for e in events
+                   if e.get("cat") == "kernel" and "dur" in e)
+    busy, end = 0.0, -1.0
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return len(spans), busy / 1e3, sum(b - a for a, b in spans) / 1e3
+
+
 def profile_main_path(torch, trainer, outdir: str, card: str,
                       blocks: int) -> None:
     """Optional (``--profile DIR``): the main path under torch.profiler
@@ -363,23 +512,12 @@ def profile_main_path(torch, trainer, outdir: str, card: str,
                                 time.perf_counter()))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    trace = os.path.join(outdir, "ps_blocks_trace.json")
-    prof.export_chrome_trace(trace)
-    with open(trace) as f:
-        events = json.load(f)
-    events = events.get("traceEvents", events)
-    spans = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]))
-                   for e in events
-                   if e.get("cat") == "kernel" and "dur" in e)
-    busy, end = 0.0, -1.0
-    for a, b in spans:
-        if b > end:
-            busy += b - max(a, end)
-            end = b
+    n_kernels, busy_ms, _ = trace_kernels(
+        prof, os.path.join(outdir, "ps_blocks_trace.json"))
     gaps = [b - a for a, b in zip([t0] + marks[:-1], marks)]
     log(f"[profile] {card} | {blocks} blocks in {wall * 1e3:.1f} ms wall "
-        f"| {len(spans)} kernels, device busy {busy / 1e3:.2f} ms "
-        f"({busy / 1e3 / (wall * 1e3):.1%} of wall) | per-block host ms "
+        f"| {n_kernels} kernels, device busy {busy_ms:.2f} ms "
+        f"({busy_ms / (wall * 1e3):.1%} of wall) | per-block host ms "
         f"{[round(g * 1e3, 2) for g in gaps]}")
     for line in Dashboard.display().splitlines():
         log(f"[profile] {line}")
@@ -405,13 +543,10 @@ def check_result(np, model, losses, pairs):
         raise AssertionError("output table never updated")
 
 
-def small_run(torch, mv, device, workdir: str):
-    """Phase 5b helper: the tests' topic corpus, 6 blocks of 128
-    centers, draws from one CPU generator; returns (losses, in, out)."""
+def write_topics(workdir: str) -> str:
+    """The tests' topic corpus (two topics of 8 words, 800 sentences of
+    12 words) in ``workdir``; returns its path."""
     import numpy as np
-    from multiverso_tpu_torch.models.wordembedding import (
-        Dictionary, PSDeviceCorpusTrainer, PSWord2Vec, TokenizedCorpus,
-        TorchDraws, Word2VecConfig)
     path = os.path.join(workdir, "topics.txt")
     rng = np.random.default_rng(0)
     topics = [[f"a{i}" for i in range(8)], [f"b{i}" for i in range(8)]]
@@ -419,6 +554,17 @@ def small_run(torch, mv, device, workdir: str):
         for _ in range(800):
             f.write(" ".join(rng.choice(topics[rng.integers(0, 2)],
                                         size=12)) + "\n")
+    return path
+
+
+def small_run(torch, mv, device, workdir: str):
+    """Phase 5b helper: the tests' topic corpus, 6 blocks of 128
+    centers, draws from one CPU generator; returns (losses, in, out)."""
+    import numpy as np
+    from multiverso_tpu_torch.models.wordembedding import (
+        Dictionary, PSDeviceCorpusTrainer, PSWord2Vec, TokenizedCorpus,
+        TorchDraws, Word2VecConfig)
+    path = write_topics(workdir)
     dictionary = Dictionary.build(path, min_count=1)
     tokenized = TokenizedCorpus.build(dictionary, path)
     mv.init([], device=str(device))
@@ -438,6 +584,256 @@ def small_run(torch, mv, device, workdir: str):
                 model._out_table.get())
     finally:
         mv.shutdown()
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def local_kernel_case(torch, trainer, table_in, table_out):
+    """The mode's step-kernel call at step 0 of an epoch, as the
+    trainer plans it (the per-pair mode: the sub-step of offset -1, the
+    densest of the 2W), with rows from the random tables
+    ``table_in``/``table_out``; its plain version; and the bytes and
+    float32 operations the call needs for this data (masked Huffman
+    nodes and invalid pairs are not read): (kernel, plain, args, bytes,
+    flops, ids) with ``ids`` = (the epoch's uniforms, in_ids,
+    out_ids)."""
+    from multiverso_tpu_torch.kernels import cbow, hs, objective, pair
+    from multiverso_tpu_torch.kernels import rows, sgns
+    from multiverso_tpu_torch.models.wordembedding import device_train
+    C, W, K = trainer._C, trainer.config.window, trainer.config.negative
+    D = trainer.config.embedding_size
+    u = trainer._draws.epoch_uniforms(1234, trainer._corpus.n_tokens)
+    kept, ksent, n_kept = trainer._corpus.prep_epoch(u)
+    kept_pad, ksent_pad = device_train._pad_stream(C, W, kept, ksent)
+    subs, pmask = trainer._plan(1234, 0, kept_pad, ksent_pad, int(n_kept),
+                                -0.025)
+    in_ids, out_ids, kernel, extra = subs[W - 1 if trainer._per_pair
+                                          else 0]
+    ids = (u, in_ids, out_ids)
+    a = rows.row_gather(table_in, in_ids, D)
+    b = rows.row_gather(table_out, out_ids, D)
+    args = (a, b) + tuple(extra)
+    outputs = nbytes(a, b)       # every gradient row written once
+    if kernel is pair.pair_offset_grad:
+        m = extra[0]
+        n_pairs = int((m > 0).sum())
+        return (kernel, pair.pair_offset_grad_plain, args,
+                n_pairs * (K + 2) * D * 4 + nbytes(m) + outputs + 8,
+                6 * D * (K + 1) * n_pairs, ids)
+    if kernel in (hs.banded_hs_sg_grad, hs.hs_cbow_grad):
+        path, code = extra[0], extra[1]
+        ok = (path >= 0) & (code >= 0)
+        log(f"[local kernel {kernel.__name__}] Huffman paths of up to "
+            f"L={path.shape[1]} nodes; {float((path < 0).float().mean()):.1%}"
+            f" of step 0's path ids are padding")
+        if kernel is hs.hs_cbow_grad:
+            n_nodes = int((ok & (pmask.sum(1) > 0)[:, None]).sum())
+            return (kernel, hs.hs_cbow_grad_plain, args,
+                    nbytes(a, path, code, pmask) + n_nodes * D * 4
+                    + outputs + 8, 2 * D * C * 2 * W * 2 + 6 * D * n_nodes,
+                    ids)
+        reached = objective.band_sum(
+            pmask, torch.ones(C, device=pmask.device), W) > 0
+        n_rows = int((ok & reached[:, None]).sum())
+        n_terms = int(sum((pmask[:, j, None] * ok[W + o:W + o + C]).sum()
+                          for j, o in enumerate(objective.offsets(W))))
+        return (kernel, hs.banded_hs_sg_grad_plain, args,
+                nbytes(a, path, code, pmask) + n_rows * D * 4 + outputs
+                + 8, 6 * D * n_terms, ids)
+    if kernel is cbow.banded_cbow_grad:
+        return (kernel, cbow.banded_cbow_grad_plain, args,
+                2 * nbytes(a, b) + nbytes(pmask) + 8,
+                2 * D * C * 2 * W * 2 + 2 * D * C * (1 + K) * 3 + D * C,
+                ids)
+    nb = C // trainer._B
+    return (kernel, sgns.banded_sgns_grad_plain, args,
+            2 * nbytes(a, b) + nbytes(pmask) + 8,
+            2 * D * (C * 2 * W + C * K) * 2 + 2 * D * C * 2 * W
+            + 2 * D * nb * K * trainer._B, ids)
+
+
+def check_local_kernels(torch, trainer, mode: str, name: str, source: str,
+                        replaces: str, card: str):
+    """Every kernel of the mode's path against its plain version on the
+    card, at step 0's shapes over random tables (so some logits pass
+    +-6), timed: K1 on the epoch's uniforms, K2 on the step's ids into
+    both tables, the step kernel (tolerance as K4's: gradients |err| <=
+    1e-5 + 1e-4 |plain|, loss relative error <= 1e-5, counts equal) and
+    K3 scattering the step kernel's gradients back into both tables."""
+    model, D = trainer.model, trainer.config.embedding_size
+    gen = torch.Generator(device=trainer.device)
+    gen.manual_seed(99)
+    table_in = torch.randn(model._emb_in.shape, generator=gen,
+                           device=trainer.device) * 0.5
+    table_out = torch.randn(model._emb_out.shape, generator=gen,
+                            device=trainer.device) * 0.5
+    kernel, plain, args, n_bytes, flops, (u, in_ids, out_ids) = \
+        local_kernel_case(torch, trainer, table_in, table_out)
+    results = [check_subsample(torch, trainer._corpus, u),
+               check_gather(torch, ((table_in, in_ids),
+                                    (table_out, out_ids)), D)]
+    got = kernel(*args)
+    ref = plain(*args)
+    err, ok = 0.0, True
+    for g, r in zip(got[:2], ref[:2]):      # the two gradients
+        diff = (g - r).abs()
+        err = max(err, float(diff.max()))
+        ok = ok and bool((diff <= 1e-5 + 1e-4 * r.abs()).all())
+    loss_rel = abs(float(got[2]) - float(ref[2])) / max(abs(float(ref[2])),
+                                                       1e-30)
+    ok = ok and loss_rel <= 1e-5 and float(got[3]) == float(ref[3])
+    results.append(dict(
+        name=name, tol=f"grads |err| <= 1e-5 + 1e-4 |plain|; loss rel err "
+        f"{loss_rel:.2g} <= 1e-5; counts equal", max_abs_err=err, ok=ok,
+        source=source, replaces=replaces,
+        ms=time_ms(torch, lambda: kernel(*args)),
+        plain_ms=time_ms(torch, lambda: plain(*args)), library_ms=None,
+        bound=bound(n_bytes, flops)))
+    log(f"[local kernel {name}] C={trainer._C} | bound from "
+        f"{n_bytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP")
+    results.append(check_scatter(torch, ((table_in, in_ids, got[0]),
+                                         (table_out, out_ids, got[1])), D))
+    del table_in, table_out, got, ref, args
+    return report(results, card, f"local_{mode}")
+
+
+def drive_local_mode(torch, trainer, mode: str, kernel: str,
+                     card: str, workdir: str, profile_dir: str):
+    """The mode's main path: 2 groups of G steps with every launch count
+    reset just before and read just after, then the same steps under
+    torch.profiler. Returns the counts."""
+    from multiverso_tpu_torch import kernels
+    model, G = trainer.model, trainer._G
+    cuda = trainer.device.type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    trainer.train_epoch(seed=99, max_steps=2)    # warm-up, not counted
+    sync()
+    kernels.reset_launch_counts()
+    words0 = model.trained_words
+    t0 = time.perf_counter()
+    loss, examples = trainer.train_epoch(seed=0, max_steps=2 * G)
+    sync()
+    elapsed = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    words = model.trained_words - words0
+    log(f"[local {mode}] {card} | {2 * G} steps of {trainer._C} centers "
+        f"in {elapsed:.4f}s | {words / elapsed:.0f} words/s | "
+        f"{elapsed / (2 * G) * 1e3:.3f} ms/step | examples {examples:.0f} "
+        f"| avg loss {loss / max(examples, 1):.4f}")
+    log(f"[local {mode}] kernel launches {counts}")
+    if not (math.isfinite(loss) and examples > 0):
+        raise AssertionError(f"local {mode}: loss {loss}, examples "
+                             f"{examples}")
+    sample = torch.arange(0, model._emb_out.shape[0], 997,
+                          device=trainer.device)
+    for table in (model._emb_in, model._emb_out):
+        if not bool(torch.isfinite(table[sample]).all()):
+            raise AssertionError(f"local {mode}: non-finite table rows")
+    if not bool((model._emb_out[sample] != 0).any()):
+        raise AssertionError(f"local {mode}: output table never updated")
+    need = ("subsample_compact", "row_gather", "row_scatter_add", kernel)
+    missing = [n for n in need if counts[n] <= 0] if cuda else []
+    if missing:
+        raise AssertionError(f"local {mode} never launched {missing}")
+    if cuda:
+        import torch.profiler as tp
+        with tp.profile(activities=[tp.ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            trainer.train_epoch(seed=0, max_steps=2 * G)
+            sync()
+            wall = time.perf_counter() - t0
+        trace = os.path.join(profile_dir or workdir,
+                             f"local_{mode}_trace.json")
+        n_kernels, busy_ms, kernel_ms = trace_kernels(prof, trace)
+        if profile_dir and mode == "sgns":
+            log(f"[profile] local sgns Chrome trace: {trace}")
+        log(f"[local {mode}] profiled: {n_kernels} kernels, device "
+            f"{kernel_ms / (2 * G):.4f} ms/step of kernels, busy "
+            f"{busy_ms:.2f} ms of {wall * 1e3:.2f} ms wall "
+            f"({busy_ms / (wall * 1e3):.1%})")
+    return counts
+
+
+def small_local_run(torch, device, workdir: str, flags: dict):
+    """The topic corpus of the tests, C=128, G=4, 6 steps, draws from one
+    CPU generator: (epoch loss, examples, input rows, output rows)."""
+    import numpy as np
+    from multiverso_tpu_torch.models.wordembedding import (
+        DeviceCorpusTrainer, Dictionary, TokenizedCorpus, TorchDraws,
+        Word2Vec, Word2VecConfig)
+    path = write_topics(workdir)
+    dictionary = Dictionary.build(path, min_count=1)
+    tokenized = TokenizedCorpus.build(dictionary, path)
+    config = Word2VecConfig(**{**dict(
+        embedding_size=16, window=3, negative=5, epochs=2, min_count=1,
+        sample=1e-2), **flags})
+    model = Word2Vec(config, dictionary, device=device)
+    # The same initial input rows on both devices (the card's generator
+    # draws other numbers than the CPU's).
+    init = np.random.default_rng(1).uniform(
+        -0.5 / 16, 0.5 / 16, tuple(model._emb_in.shape)).astype(np.float32)
+    model._emb_in.copy_(torch.from_numpy(init))
+    trainer = DeviceCorpusTrainer(model, tokenized, centers_per_step=128,
+                                  steps_per_dispatch=4,
+                                  draws=TorchDraws(device,
+                                                   draw_device="cpu"))
+    loss, examples = trainer.train_epoch(seed=5, max_steps=6)
+    return (loss, examples, model._emb_in.cpu().numpy(),
+            model._emb_out.cpu().numpy())
+
+
+def run_local_phase(torch, np, device, dictionary, tokenized, card: str,
+                    workdir: str, profile_dir: str, dim: int,
+                    scale_down: int):
+    """Phase 6: every local mode at the bench's settings (``scale_down``
+    divides the step size in the CPU rehearsal). Returns (kernel
+    results, launch counts per path ``local_<mode>``)."""
+    from multiverso_tpu_torch.models.wordembedding import (
+        DeviceCorpusTrainer, Word2Vec, Word2VecConfig)
+    results, counts = [], {}
+    for mode, flags, C, G, kernel, source, replaces in LOCAL_MODES:
+        t0 = time.perf_counter()
+        config = Word2VecConfig(**{**dict(
+            embedding_size=dim, window=WINDOW, negative=NEG, epochs=3,
+            min_count=1, sample=1e-3), **flags})
+        model = Word2Vec(config, dictionary, device=device)
+        trainer = DeviceCorpusTrainer(model, tokenized, C // scale_down, G)
+        log(f"[local {mode}] model + trainer {time.perf_counter() - t0:.1f}s"
+            f" | tables {tuple(model._emb_in.shape)} in, "
+            f"{tuple(model._emb_out.shape)} out | C={trainer._C} G={G}")
+        if device.type == "cuda":
+            results += check_local_kernels(torch, trainer, mode, kernel,
+                                           source, replaces, card)
+        else:   # the rehearsal: the case's shapes and byte counts only
+            local_kernel_case(torch, trainer, model._emb_in,
+                              model._emb_out)
+        counts[f"local_{mode}"] = drive_local_mode(torch, trainer, mode, kernel, card,
+                                        workdir, profile_dir)
+        del model, trainer
+        gc.collect()
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    for mode, flags, *_ in LOCAL_MODES:
+        ref = small_local_run(torch, torch.device("cpu"), workdir, flags)
+        got = small_local_run(torch, device, workdir, flags)
+        if got[1] != ref[1]:
+            raise AssertionError(f"small input {mode}: examples {got[1]} "
+                                 f"vs {ref[1]}")
+        for name, g, r in zip(("loss", "in rows", "out rows"),
+                              (got[0], got[2], got[3]),
+                              (ref[0], ref[2], ref[3])):
+            np.testing.assert_allclose(g, r, rtol=1e-4, atol=1e-6,
+                                       err_msg=f"{mode} {name}")
+        log(f"[small input] local {mode}: card vs CPU plain path, 6 steps: "
+            f"loss {got[0]:.6f} vs {ref[0]:.6f}, both tables agree (rtol "
+            f"1e-4, atol 1e-6)")
+    return results, counts
 
 
 def main(argv=None) -> int:
@@ -483,7 +879,7 @@ def main(argv=None) -> int:
     dim = 16 if rehearsal else DIM
     with tempfile.TemporaryDirectory(prefix="mv_chip_smoke_") as workdir:
         from multiverso_tpu_torch.models.wordembedding import synthetic
-        model, trainer = setup_main_path(
+        model, trainer, dictionary, tokenized = setup_main_path(
             torch, mv, device, workdir,
             sentences or synthetic.SENTENCES, centers, dim)
         # The ~1M-word dictionary and the corpus are long-lived: keep
@@ -507,7 +903,7 @@ def main(argv=None) -> int:
             profile_main_path(torch, trainer, args.profile, card, BLOCKS)
         mv.shutdown()
         if not rehearsal:
-            missing = [n for n, c in counts.items() if c <= 0]
+            missing = [n for n in PS_KERNELS if counts[n] <= 0]
             if missing:
                 raise AssertionError(f"main path never launched {missing}")
             ref = small_run(torch, mv, torch.device("cpu"), workdir)
@@ -519,15 +915,30 @@ def main(argv=None) -> int:
             log(f"[small input] card vs CPU plain path: 6 block losses and "
                 f"both tables agree (rtol 1e-4, atol 1e-6); max loss diff "
                 f"{float(np.abs(got[0] - ref[0]).max()):g}")
+        # Phase 6, the local pipeline: the PS tables go first.
+        del model, trainer
+        gc.collect()
+        if not rehearsal:
+            torch.cuda.empty_cache()
+        local_results, local_counts = run_local_phase(
+            torch, np, device, dictionary, tokenized, card, workdir,
+            args.profile, dim, 64 if rehearsal else 1)
+        results += local_results
+        counts = {"ps": counts, **local_counts}
     log(f"[done] {time.perf_counter() - started:.1f}s")
     if rehearsal:
         return 3
-    kernels_line = {"kernels": [dict(
-        name=r["name"], route="cuda", source=r["source"],
-        replaces=r["replaces"], launches=int(counts[r["name"]]),
-        max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
-        bound_ms=r["bound"][0], bound_by=r["bound"][1],
-        library_ms=r["library_ms"]) for r in results]}
+    # One entry a (path, kernel): the check at that path's shapes and the
+    # launches of that path's own counted run.
+    kernels_line = {"kernels": []}
+    for r in results:
+        kernels_line["kernels"].append(dict(
+            name=r["name"], path=r["path"], route="cuda",
+            source=r["source"], replaces=r["replaces"],
+            launches=int(counts[r["path"]][r["name"]]),
+            max_abs_err=r["max_abs_err"], ms=r["ms"],
+            plain_ms=r["plain_ms"], bound_ms=r["bound"][0],
+            bound_by=r["bound"][1], library_ms=r["library_ms"]))
     print(json.dumps(kernels_line), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

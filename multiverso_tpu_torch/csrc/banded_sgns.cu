@@ -25,55 +25,14 @@
 //      complete d_v of its centers and d_u of its negatives, the
 //      per-(center, offset) positive coefficients gpos[C, 2W] and its
 //      loss and pair partial sums.
-//   B. one warp per band row t: d_u[t] = scale * sum_j gpos[c_j, j] *
-//      v[c_j] with c_j = t - W - off_j; the last block sums the loss and
-//      pair partials in a fixed order.
+//   B. the shared band pass (w2v_common.cuh), one warp per band row t:
+//      d_u[t] = scale * sum_j gpos[c_j, j] * v[c_j] with
+//      c_j = t - W - off_j; the last block sums the loss and pair
+//      partials in a fixed order.
 
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "w2v_common.cuh"
 
 namespace {
-
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr float kMaxExp = 6.0f;
-
-__device__ __forceinline__ int offset_of(int j, int W) {
-  return j < W ? j - W : j - W + 1;
-}
-
-__device__ __forceinline__ float clip(float x) {
-  return fminf(kMaxExp, fmaxf(-kMaxExp, x));
-}
-
-// d clip(x) / dx as JAX differentiates minimum(6, maximum(-6, x)).
-__device__ __forceinline__ float clip_grad(float x) {
-  const float lo = x > -kMaxExp ? 1.0f : (x == -kMaxExp ? 0.5f : 0.0f);
-  const float m = fmaxf(-kMaxExp, x);
-  const float hi = m < kMaxExp ? 1.0f : (m == kMaxExp ? 0.5f : 0.0f);
-  return lo * hi;
-}
-
-// Sigmoid cross-entropy max(x,0) - x*y + log1p(exp(-|x|)).
-__device__ __forceinline__ float xent(float x, float y) {
-  return fmaxf(x, 0.0f) - x * y + log1pf(expf(-fabsf(x)));
-}
-
-// Its derivative as JAX's autodiff forms it: 1/2 for max(x, 0) at
-// x == 0 and d|x|/dx = 1 at x == 0, so exactly 0 gives -y (every logit
-// against the zero-initialized output table is exactly 0).
-__device__ __forceinline__ float xent_grad(float x, float y) {
-  const float e = expf(-fabsf(x));
-  const float relu = x > 0.0f ? 1.0f : (x == 0.0f ? 0.5f : 0.0f);
-  const float sgn = x >= 0.0f ? 1.0f : -1.0f;
-  return relu - y - sgn * (e / (1.0f + e));
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
 
 __global__ void sgns_block(const float* __restrict__ v,
                            const float* __restrict__ u,
@@ -111,10 +70,10 @@ __global__ void sgns_block(const float* __restrict__ v,
   const float* msrc = pmask + (int64_t)c0 * W2;
   for (int i = tid; i < n_pos; i += kThreads) spm[i] = msrc[i];
   __syncthreads();
-  if (tid < B) {
+  for (int bi = tid; bi < B; bi += kThreads) {
     float s = 0.0f;
-    for (int j = 0; j < W2; ++j) s += spm[tid * W2 + j];
-    snval[tid] = s;
+    for (int j = 0; j < W2; ++j) s += spm[bi * W2 + j];
+    snval[bi] = s;
   }
 
   // One warp per logit: the dot products.
@@ -189,46 +148,6 @@ __global__ void sgns_block(const float* __restrict__ v,
   }
 }
 
-__global__ void sgns_band(const float* __restrict__ v,
-                          const float* __restrict__ gpos, int C, int W,
-                          int D, float scale, int64_t band_blocks,
-                          const float* __restrict__ loss_part,
-                          const float* __restrict__ pairs_part, int nb,
-                          float* __restrict__ d_u,
-                          float* __restrict__ loss_out,
-                          float* __restrict__ pairs_out) {
-  const int lane = threadIdx.x & 31;
-  if (blockIdx.x == band_blocks) {
-    // Fixed-order reduction of the per-block partials (deterministic).
-    if (threadIdx.x < 32) {
-      float l = 0.0f, p = 0.0f;
-      for (int i = lane; i < nb; i += 32) {
-        l += loss_part[i];
-        p += pairs_part[i];
-      }
-      l = warp_sum(l);
-      p = warp_sum(p);
-      if (lane == 0) {
-        loss_out[0] = l;
-        pairs_out[0] = p;
-      }
-    }
-    return;
-  }
-  const int W2 = 2 * W;
-  const int64_t t = (blockIdx.x * (int64_t)kThreads + threadIdx.x) >> 5;
-  if (t >= (int64_t)C + W2) return;
-  float* dst = d_u + t * D;
-  for (int d = lane; d < D; d += 32) {
-    float g = 0.0f;
-    for (int j = 0; j < W2; ++j) {
-      const int64_t c = t - W - offset_of(j, W);
-      if (c >= 0 && c < C) g += gpos[c * W2 + j] * v[c * D + d];
-    }
-    dst[d] = scale * g;
-  }
-}
-
 }  // namespace
 
 extern "C" size_t mv_banded_sgns_smem(int W, int K, int B, int D) {
@@ -246,20 +165,13 @@ extern "C" cudaError_t mv_banded_sgns_grad(
     cudaStream_t stream) {
   const int nb = C / B;
   const size_t smem = mv_banded_sgns_smem(W, K, B, D);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        sgns_block, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-  }
+  cudaError_t err = allow_smem(sgns_block, smem);
+  if (err != cudaSuccess) return err;
   sgns_block<<<nb, kThreads, smem, stream>>>(v, u, pmask, C, W, K, B, D,
                                              scale, d_v, d_u, gpos,
                                              loss_part, pairs_part);
-  cudaError_t err = cudaGetLastError();
+  err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const int64_t band_rows = (int64_t)C + 2 * W;
-  const int64_t band_blocks = (band_rows * 32 + kThreads - 1) / kThreads;
-  sgns_band<<<(unsigned)(band_blocks + 1), kThreads, 0, stream>>>(
-      v, gpos, C, W, D, scale, band_blocks, loss_part, pairs_part, nb, d_u,
-      loss_out, pairs_out);
-  return cudaGetLastError();
+  return launch_band_pass(v, gpos, C, W, 1, D, scale, loss_part,
+                          pairs_part, nb, d_u, loss_out, pairs_out, stream);
 }

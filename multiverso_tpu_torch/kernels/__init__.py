@@ -7,7 +7,13 @@ subsample_compact  ``subsample.py``          ``_prep`` (B4)
 row_gather         ``rows.py``               ``MatrixServer._gather`` (B1)
 row_scatter_add    ``rows.py``               ``DefaultRule/SGDRule.rows``
                                              via ``apply_rows`` (B2)
-banded_sgns_grad   ``sgns.py``               ``_block_step_fn`` SGNS (B10)
+banded_sgns_grad   ``sgns.py``               ``_block_step_fn`` SGNS (B10),
+                                             ``_apply_step`` SGNS (B5)
+banded_cbow_grad   ``cbow.py``               ``_apply_step`` CBOW (B6)
+banded_hs_sg_grad  ``hs.py``                 ``_hs_sg_loss_and_grads`` (B8)
+hs_cbow_grad       ``hs.py``                 ``_hs_cbow_loss_and_grads``
+                                             (B8)
+pair_offset_grad   ``pair.py``               ``_seq_pair_step`` (B7)
 =================  ========================  ============================
 
 A wrapper given a CUDA tensor launches its kernel (built at first use
@@ -19,6 +25,9 @@ from __future__ import annotations
 
 from typing import Dict
 
+from .cbow import banded_cbow_grad
+from .hs import banded_hs_sg_grad, hs_cbow_grad
+from .pair import pair_offset_grad
 from .rows import row_gather, row_scatter_add
 from .sgns import banded_sgns_grad
 from .subsample import subsample_compact
@@ -28,6 +37,10 @@ WRAPPERS = {
     "row_gather": row_gather,
     "row_scatter_add": row_scatter_add,
     "banded_sgns_grad": banded_sgns_grad,
+    "banded_cbow_grad": banded_cbow_grad,
+    "banded_hs_sg_grad": banded_hs_sg_grad,
+    "hs_cbow_grad": hs_cbow_grad,
+    "pair_offset_grad": pair_offset_grad,
 }
 
 

@@ -1,6 +1,7 @@
 """Build and load the port's hand-written CUDA kernels.
 
-The sources are ``multiverso_tpu_torch/csrc/*.cu``, each with a plain C
+The sources are ``multiverso_tpu_torch/csrc/*.cu`` (sharing the device
+helpers of ``csrc/*.cuh``), each with a plain C
 interface (pointers, sizes and a ``cudaStream_t``; every entry point
 returns its ``cudaError_t``). At first use each source is compiled by
 its own ``nvcc`` process — all started together — for ``sm_90a``, and
@@ -49,11 +50,23 @@ SIGNATURES = {
     "mv_subsample_compact": [_P, _P, _P, _P, _I64, _P, _P, _P, _P, _P, _P],
     "mv_banded_sgns_grad": [_P, _P, _P, _I, _I, _I, _I, _I, _F,
                             _P, _P, _P, _P, _P, _P, _P, _P],
+    "mv_banded_cbow_grad": [_P, _P, _P, _I, _I, _I, _I, _I, _F,
+                            _P, _P, _P, _P, _P, _P, _P, _P],
+    "mv_banded_hs_sg_grad": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
+                             _P, _P, _P, _P, _P, _P, _P, _P],
+    "mv_hs_cbow_grad": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
+                        _P, _P, _P, _P, _P, _P, _P, _P],
+    "mv_pair_offset_grad": [_P, _P, _P, _I, _I, _I, _F, _P, _P, _P, _P,
+                            _P, _P, _P],
 }
 
 
 def sources() -> List[Path]:
     return sorted(CSRC_DIR.glob("*.cu"))
+
+
+def headers() -> List[Path]:
+    return sorted(CSRC_DIR.glob("*.cuh"))
 
 
 def nvcc_path() -> str:
@@ -72,7 +85,7 @@ def _digest(extra: List[str]) -> str:
     h = hashlib.sha256()
     for flag in NVCC_FLAGS + extra:
         h.update(flag.encode())
-    for src in sources():
+    for src in sources() + headers():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]

@@ -21,50 +21,12 @@ launched the kernel.
 
 from __future__ import annotations
 
-from typing import List
-
 import torch
 
 from . import build
 from ._launch import is_plain, require, stream_of
-
-MAX_EXP = 6.0  # word2vec.c's sigmoid-table range (model.py _MAX_EXP)
-
-
-def offsets(W: int) -> List[int]:
-    return [o for o in range(-W, W + 1) if o != 0]
-
-
-def clip_grad(x: torch.Tensor) -> torch.Tensor:
-    """d/dx of ``minimum(6, maximum(-6, x))`` as JAX differentiates it
-    (ties split the gradient in halves)."""
-    one, half, zero = (torch.tensor(v, dtype=x.dtype, device=x.device)
-                       for v in (1.0, 0.5, 0.0))
-    lo = torch.where(x > -MAX_EXP, one, torch.where(x == -MAX_EXP, half,
-                                                    zero))
-    m = torch.clamp(x, min=-MAX_EXP)
-    hi = torch.where(m < MAX_EXP, one, torch.where(m == MAX_EXP, half,
-                                                   zero))
-    return lo * hi
-
-
-def xent(x: torch.Tensor, y: float) -> torch.Tensor:
-    """Numerically stable sigmoid cross-entropy (model.py
-    ``_sigmoid_xent``)."""
-    return torch.clamp(x, min=0) - x * y + torch.log1p(torch.exp(-x.abs()))
-
-
-def xent_grad(x: torch.Tensor, y: float) -> torch.Tensor:
-    """d xent / dx as JAX's autodiff forms it: 1/2 for ``max(x, 0)`` at
-    x == 0 and d|x|/dx = 1 at x == 0, so the gradient at exactly 0 is
-    -y (not sigmoid(0) - y) — which is what every logit against the
-    zero-initialized output table gives."""
-    e = torch.exp(-x.abs())
-    relu = torch.where(x > 0, torch.ones_like(x),
-                       torch.where(x == 0, torch.full_like(x, 0.5),
-                                   torch.zeros_like(x)))
-    sgn = torch.where(x >= 0, torch.ones_like(x), -torch.ones_like(x))
-    return relu - y - sgn * (e / (1.0 + e))
+from .objective import (MAX_EXP, band_sum, clip_grad, offsets, xent,
+                        xent_grad)
 
 
 def banded_sgns_grad_plain(v: torch.Tensor, u: torch.Tensor,
@@ -88,10 +50,9 @@ def banded_sgns_grad_plain(v: torch.Tensor, u: torch.Tensor,
     gpos = xent_grad(pos, 1.0) * clip_grad(pos_raw) * pmask
     gneg = xent_grad(neg, 0.0) * clip_grad(neg_raw) * nw
     g_v = torch.einsum("nbk,nkd->nbd", gneg, u_neg).reshape(C, D)
-    g_band = torch.zeros_like(u_band)
     for j, off in enumerate(offs):
         g_v = g_v + gpos[:, j:j + 1] * u_band[W + off:W + off + C]
-        g_band[W + off:W + off + C] += gpos[:, j:j + 1] * v
+    g_band = band_sum(gpos, v, W)
     g_neg = torch.einsum("nbk,nbd->nkd", gneg, vb).reshape(nb * K, D)
     d_u = torch.cat([g_band, g_neg]) * scale
     return g_v * scale, d_u, loss, pmask.sum()

@@ -1,38 +1,47 @@
-"""Device-resident corpus training through the parameter server.
+"""Device-resident corpus training: the word2vec data pipeline on the
+card.
 
-Port of ``multiverso_tpu/models/wordembedding/device_train.py`` for the
-PS pipeline: the TOKENIZED CORPUS is uploaded to the card once, and per
-epoch and per block everything the reference's reader/trainer pipeline
-does — subsampling, sentence-bounded shrunk windows, negative sampling,
-the SGNS update — runs on the card
+Port of ``multiverso_tpu/models/wordembedding/device_train.py``: the
+TOKENIZED CORPUS is uploaded to the card once, and per epoch and per
+step everything the reference's reader/trainer pipeline does —
+subsampling, sentence-bounded shrunk windows, negative sampling, the
+update — runs on the card
 (ref: Applications/WordEmbedding/src/reader.cpp — subsample-as-you-read;
-wordembedding.cpp — per-center shrunk window + SGNS). Per block
-``PSDeviceCorpusTrainer`` computes the ids on the card, pulls the rows
-with device keys through the worker and server actors (row gather,
-K2), runs the banded SGNS step on the pulled rows (K4) and pushes
-``-lr * grad / num_workers`` back (row scatter-add, K3). The host's
-only per-block work is the learning-rate scalar; per epoch it reads the
+wordembedding.cpp — per-center shrunk window + SGNS). The host's only
+per-step work is the learning-rate scalar; per epoch it reads the
 post-subsampling length once after the compaction (K1).
 
+Two trainers:
+
+- ``DeviceCorpusTrainer`` drives a local ``Word2Vec`` (both tables whole
+  on the card) through the reference's full mode matrix — {skip-gram,
+  CBOW} x {negative sampling, hierarchical softmax} plus the per-pair
+  skip-gram quality mode. Each step gathers its rows (K2), computes the
+  gradients on one hand-written kernel (K4 SGNS, K5 CBOW, K6/K7 HS, K8
+  per pair) and scatter-adds ``-lr * grad`` back into the live tables
+  (K3).
+- ``PSDeviceCorpusTrainer`` drives a ``PSWord2Vec``: per block it pulls
+  the rows with device keys through the worker and server actors (K2),
+  runs the banded SGNS step on the pulled rows (K4) and pushes
+  ``-lr * grad / num_workers`` back (K3). Skip-gram with negative
+  sampling only, one block per dispatch (``blocks_per_dispatch=1``),
+  broadcast keys (``segment_keys=False``); CBOW, HS and per-pair (B10),
+  grouped dispatch (B10 G>1) and segmented keys (B11) raise
+  ``NotImplementedError``.
+
 The BANDED formulation is the reference's: the contexts of C
-consecutive centers all lie in ``kept[base-W : base+C+W]``, so the
-block pulls those C+2W output rows once and forms the 2W context
-logits as shifted slices; ``neg_block`` B shares one draw of K
-negatives across each block of B consecutive centers.
+consecutive centers all lie in ``kept[base-W : base+C+W]``, so a step
+gathers those C+2W rows once and forms the 2W context logits as shifted
+slices; ``neg_block`` B shares one draw of K negatives across each
+block of B consecutive centers.
 
 Random draws are kept out of the deterministic math: ``_prep``'s
 uniforms, the shrunk windows and the negative draws come from a draw
 provider (``TorchDraws`` by default: one ``torch.Generator`` on the
 device, seeded per epoch), so the tests can replay the reference's
 ``jax.random`` draws and compare ids bit for bit. The ids work
-(``_band_former``, ``_draw_negs``) is plain torch over ~53K-entry
-vectors.
-
-Ported: skip-gram with negative sampling, one block per dispatch
-(``blocks_per_dispatch=1``), broadcast keys (``segment_keys=False``).
-CBOW (B6), hierarchical softmax (B8), the per-pair quality mode (B7),
-grouped dispatch (B10 G>1), segmented keys (B11) and the local
-``DeviceCorpusTrainer`` (B5) raise ``NotImplementedError``.
+(``_band_former``, ``_draw_negs``, the Huffman path lookups) is plain
+torch.
 """
 
 from __future__ import annotations
@@ -44,7 +53,12 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from ...kernels.sgns import banded_sgns_grad, offsets
+from ...kernels.cbow import banded_cbow_grad
+from ...kernels.hs import banded_hs_sg_grad, hs_cbow_grad
+from ...kernels.objective import offsets
+from ...kernels.pair import pair_offset_grad
+from ...kernels.rows import row_gather, row_scatter_add
+from ...kernels.sgns import banded_sgns_grad
 from ...kernels.subsample import subsample_compact
 from ...runtime import device_lock
 from ...util.dashboard import monitor
@@ -70,17 +84,28 @@ class TorchDraws:
         return torch.rand(n_tokens, generator=self.generator,
                           device=self.draw_device).to(self.device)
 
+    def step_draws(self, seed: int, step: int, C: int, W: int,
+                   neg_shape: Optional[Tuple[int, ...]], V: int):
+        """(shrink int32[C] in [1, W], negative candidates int32
+        [neg_shape] in [0, V), their alias uniforms float32[neg_shape])
+        for step ``step`` of the local pipeline; with ``neg_shape`` None
+        (hierarchical softmax) only the shrink draw, the others None."""
+        g, dev = self.generator, self.draw_device
+        shrink = torch.randint(1, W + 1, (C,), generator=g, device=dev,
+                               dtype=torch.int32).to(self.device)
+        if neg_shape is None:
+            return shrink, None, None
+        idx = torch.randint(0, V, neg_shape, generator=g, device=dev,
+                            dtype=torch.int32)
+        u = torch.rand(neg_shape, generator=g, device=dev)
+        return shrink, idx.to(self.device), u.to(self.device)
+
     def block_draws(self, seed: int, block: int, C: int, W: int, nb: int,
                     K: int, V: int):
         """(shrink int32[C] in [1, W], negative candidates int32[nb, K]
-        in [0, V), their alias uniforms float32[nb, K]) for one block."""
-        g, dev = self.generator, self.draw_device
-        shrink = torch.randint(1, W + 1, (C,), generator=g, device=dev,
-                               dtype=torch.int32)
-        idx = torch.randint(0, V, (nb, K), generator=g, device=dev,
-                            dtype=torch.int32)
-        u = torch.rand((nb, K), generator=g, device=dev)
-        return tuple(x.to(self.device) for x in (shrink, idx, u))
+        in [0, V), their alias uniforms float32[nb, K]) for one PS
+        block."""
+        return self.step_draws(seed, block, C, W, (nb, K), V)
 
 
 def _pad_stream(C: int, W: int, kept: torch.Tensor, ksent: torch.Tensor):
@@ -297,11 +322,171 @@ class PSDeviceCorpusTrainer:
                 0.0 if pair_acc is None else float(pair_acc))
 
 
-class DeviceCorpusTrainer:
-    """The local (non-PS) device trainer of the reference; not ported
-    yet."""
+def _hs_center_cap(path_len: int, dim: int) -> int:
+    """Centers-per-step bound for the HS pipelines: the banded path rows
+    are [C+2W, L, D] plus their gradient — cap C so they stay within
+    ~1.5 GB of device memory (the reference's cap, copied)."""
+    return max((3 << 29) // (3 * max(path_len, 1) * dim * 4), 64)
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError("the local DeviceCorpusTrainer (fused "
-                                  "banded step, B5) is not ported yet "
-                                  "(ROADMAP A7)")
+
+class DeviceCorpusTrainer:
+    """Drives a local ``Word2Vec`` model's tables straight from a
+    device-resident ``TokenizedCorpus``. Covers the FULL mode matrix:
+    {skip-gram, CBOW} x {negative sampling, hierarchical softmax}
+    (ref: wordembedding.h:95-125 trains every combination through its
+    one hot loop), plus the per-pair skip-gram quality mode."""
+
+    def __init__(self, model, tokenized: TokenizedCorpus,
+                 centers_per_step: int = 32768,
+                 steps_per_dispatch: int = 8, draws=None):
+        config = model.config
+        self.model = model
+        self.config = config
+        self._C = int(centers_per_step)
+        self._G = int(steps_per_dispatch)
+        self.device = model.device
+        self._corpus = _CorpusOnDevice(model, tokenized, self.device)
+        self._n_tokens = self._corpus.n_tokens
+        self._B = 1
+        self._per_pair = False
+        if config.hs:
+            # Banded HS rows are [C+2W, L, D] (L = max Huffman path):
+            # cap C so the gathered path rows and their gradient stay
+            # within ~1.5 GB; a larger centers_per_step is cut to the cap.
+            path_len = max(int(model._points_host.shape[1]), 1)
+            self._C = min(self._C, _hs_center_cap(
+                path_len, int(config.embedding_size)))
+            self._vocab = 0
+        else:
+            self._B = max(int(getattr(config, "neg_block", 1)), 1)
+            if self._C % self._B:
+                raise ValueError("neg_block must divide centers_per_step")
+            self._per_pair = bool(getattr(config, "per_pair", False))
+            if self._per_pair and config.cbow:
+                raise ValueError("per_pair is a skip-gram quality mode")
+            self._vocab = int(model._neg_prob_dev.shape[0])
+        self._draws = draws if draws is not None \
+            else TorchDraws(self.device)
+        # Post-subsampling tokens actually trained (centers), across
+        # epochs — the exact basis for utilization accounting.
+        self.kept_words_trained = 0
+
+    def _neg_shape(self):
+        C, W, K = self._C, self.config.window, self.config.negative
+        if self.config.hs:
+            return None
+        if self._per_pair:
+            return (2 * W, C, K)
+        return (C // self._B, K)
+
+    def _plan(self, seed: int, step: int, kept_pad, ksent_pad,
+              n_kept: int, scale: float):
+        """Step ``step``'s work: (sub-steps, pmask). A sub-step is
+        ``(in_ids, out_ids, kernel, args)``, run as ``kernel(
+        emb_in[in_ids], emb_out[out_ids], *args)``; one sub-step a step,
+        except the per-pair mode's 2W (ref: _apply_step, _seq_pair_step,
+        _group_fn_hs)."""
+        model, config = self.model, self.config
+        C, W, K, B = self._C, config.window, config.negative, self._B
+        shrink, idx, u = self._draws.step_draws(
+            seed, step, C, W, self._neg_shape(), self._vocab)
+        centers, band, pmask = _band_former(C, W, n_kept, kept_pad,
+                                            ksent_pad, shrink, step * C)
+        if config.hs:
+            # B8: the center row against the Huffman paths of the band's
+            # words, gathered once per band position (K6), or the window
+            # mean against the center's own path (K7).
+            ids = (centers if config.cbow else band).to(torch.int64)
+            path, code = model._points_dev[ids], model._codes_dev[ids]
+            out_ids = torch.clamp(path, min=0).reshape(-1)
+            if config.cbow:
+                return [(band, out_ids, hs_cbow_grad,
+                         (path, code, pmask, W, scale))], pmask
+            return [(centers, out_ids, banded_hs_sg_grad,
+                     (path, code, pmask, W, scale))], pmask
+        negs = _draw_negs(model._neg_prob_dev, model._neg_alias_dev, idx,
+                          u)
+        if self._per_pair:
+            # B7: 2W sequential sub-steps in offset order, each with its
+            # own K negatives a pair (K8).
+            pm_cols = pmask.T.contiguous()
+            return [(centers, torch.cat([band[W + off:W + off + C],
+                                         negs[j].reshape(-1)]),
+                     pair_offset_grad, (pm_cols[j], K, scale))
+                    for j, off in enumerate(offsets(W))], pmask
+        if config.cbow:
+            # B6: the window (input table) predicts [center | negatives]
+            # (output table) (K5).
+            return [(band, torch.cat([centers, negs.reshape(-1)]),
+                     banded_cbow_grad, (pmask, W, K, B, scale))], pmask
+        # B5: banded skip-gram with negative sampling (K4).
+        return [(centers, torch.cat([band, negs.reshape(-1)]),
+                 banded_sgns_grad, (pmask, W, K, B, scale))], pmask
+
+    def _step(self, seed: int, step: int, kept_pad, ksent_pad,
+              n_kept: int, scale: float):
+        """One training step on the live tables; (loss, examples) as
+        device scalars."""
+        emb_in, emb_out = self.model._emb_in, self.model._emb_out
+        D = emb_in.shape[1]
+        subs, _ = self._plan(seed, step, kept_pad, ksent_pad, n_kept,
+                             scale)
+        loss, examples = None, None
+        for in_ids, out_ids, kernel, args in subs:
+            # Each sub-step gathers from the live tables after the
+            # previous one's scatter (one stream, launch order) and
+            # scatter-adds scale * grad (scale = -lr) straight back IN
+            # PLACE: the reference donates the table buffers to its
+            # group program and gets new ones back; updating in place
+            # stands in for that donation.
+            d_in, d_out, sub_loss, sub_examples = kernel(
+                row_gather(emb_in, in_ids, D),
+                row_gather(emb_out, out_ids, D), *args)
+            row_scatter_add(emb_in, in_ids, d_in)
+            row_scatter_add(emb_out, out_ids, d_out)
+            if loss is None:
+                loss, examples = sub_loss, sub_examples
+            else:
+                loss, examples = loss + sub_loss, examples + sub_examples
+        return loss, examples
+
+    def train_epoch(self, seed: int, group_hook=None,
+                    max_steps: int = 0) -> Tuple[float, float]:
+        """One full epoch on the card. ``group_hook(words)`` is called
+        after each group of ``steps_per_dispatch`` steps with the
+        raw-word count it covered; ``max_steps`` truncates the epoch.
+        Returns (loss_sum, examples) as floats — fetched ONCE at epoch
+        end. ``examples`` counts (center, context) pairs in skip-gram
+        mode and trained centers in CBOW mode."""
+        model, C, G = self.model, self._C, self._G
+        u = self._draws.epoch_uniforms(seed, self._n_tokens)
+        kept, ksent, n_kept_dev = self._corpus.prep_epoch(u)
+        kept_pad, ksent_pad = _pad_stream(C, self.config.window, kept,
+                                          ksent)
+        n_kept = int(device_lock.settle(n_kept_dev))  # one host read
+        steps = max(math.ceil(n_kept / C), 1)
+        if max_steps:
+            steps = min(steps, max_steps)
+        self.kept_words_trained += min(steps * C, n_kept)
+        # lr schedule decays in RAW corpus words (subsample-dropped words
+        # count, ref: distributed_wordembedding.cpp:92-134): spread the
+        # epoch's raw words uniformly over its steps.
+        raw_per_step = self._n_tokens / max(math.ceil(n_kept / C), 1)
+        loss_acc = None
+        ex_acc = None
+        # Groups of G steps with no host sync inside; the reference's
+        # padded tail steps (lr 0, no valid center) are no-ops and are
+        # not run.
+        for g0 in range(0, steps, G):
+            real = min(G, steps - g0)
+            for step in range(g0, g0 + real):
+                scale = float(-np.float32(model.learning_rate()))
+                model._account_words(raw_per_step)
+                loss, examples = self._step(seed, step, kept_pad,
+                                            ksent_pad, n_kept, scale)
+                loss_acc = loss if loss_acc is None else loss_acc + loss
+                ex_acc = examples if ex_acc is None else ex_acc + examples
+            if group_hook is not None:
+                group_hook(raw_per_step * real)
+        return (0.0 if loss_acc is None else float(loss_acc),
+                0.0 if ex_acc is None else float(ex_acc))

@@ -1,17 +1,21 @@
-"""WordEmbedding CLI: word2vec through the parameter server on the card.
+"""WordEmbedding CLI: word2vec on the card, locally or through the
+parameter server.
 
 Port of ``multiverso_tpu/models/wordembedding/main.py``
 (ref: Applications/WordEmbedding/src/main.cpp:16-28 and
-distributed_wordembedding.cpp: epoch loop over blocks; rank 0 saves the
-embeddings after the last epoch). Flags use the framework's -key=value
-convention with the reference's names and defaults. This slice runs the
-``-use_ps=true`` device pipeline; the other branches raise
-``NotImplementedError`` naming their ROADMAP item.
+distributed_wordembedding.cpp: epoch loop; rank 0 saves the embeddings
+after the last epoch). Flags use the framework's -key=value convention
+with the reference's names and defaults. Both device pipelines run:
+local (``-use_ps=false``, the default; every mode of ``-cbow``/``-hs``/
+``-per_pair``) and through the parameter server (``-use_ps=true``,
+skip-gram with negative sampling). The host-batch loop
+(``-device_pipeline=false``) raises ``NotImplementedError`` (ROADMAP
+B9).
 
 Usage::
 
     python -m multiverso_tpu_torch.models.wordembedding.main \\
-        -use_ps=true -train_file=corpus.txt -output_file=vectors.txt \\
+        -train_file=corpus.txt -output_file=vectors.txt \\
         -size=128 -window=5 -negative=5 -neg_block=8 -epoch=1
 """
 
@@ -26,9 +30,9 @@ from ...util import log
 from ...util.configure import (define_bool, define_double, define_int,
                                define_string, get_flag, parse_cmd_flags)
 from .data import TokenizedCorpus
-from .device_train import PSDeviceCorpusTrainer
+from .device_train import DeviceCorpusTrainer, PSDeviceCorpusTrainer
 from .dictionary import Dictionary
-from .model import PSWord2Vec, Word2VecConfig
+from .model import PSWord2Vec, Word2Vec, Word2VecConfig
 
 define_string("train_file", "", "training corpus (';'-separated)")
 define_string("output_file", "vectors.txt", "embedding output path")
@@ -56,7 +60,27 @@ define_string("stopwords", "", "optional stopwords file (one word per "
               "line) filtered out of the vocabulary")
 
 
-def run(argv=None) -> PSWord2Vec:
+def _read_stopwords(path: str) -> set:
+    """One word a line (ref: Applications/WordEmbedding/src/reader.cpp,
+    flag -stopwords)."""
+    from ...io import TextReader
+    stopwords = set()
+    reader = TextReader(path)
+    while True:
+        line = reader.get_line()
+        if line is None:
+            break
+        word = line.strip()
+        if word:
+            stopwords.add(word)
+    reader.close()
+    log.info("loaded %d stopwords", len(stopwords))
+    return stopwords
+
+
+def run(argv=None, device=None) -> Word2Vec:
+    """Train as the flags say. ``device`` as for ``mv.init``: ``cuda:0``
+    by default (raises without a card); ``"cpu"`` runs on the CPU."""
     parse_cmd_flags(list(argv) if argv is not None else sys.argv[1:])
     config = Word2VecConfig(
         embedding_size=get_flag("size"), window=get_flag("window"),
@@ -69,33 +93,33 @@ def run(argv=None) -> PSWord2Vec:
     train_file = get_flag("train_file")
     if not train_file:
         raise SystemExit("need -train_file=<corpus>")
-    if not config.use_ps:
-        raise NotImplementedError(
-            "local word2vec (-use_ps=false) is not ported yet "
-            "(ROADMAP A7, B5); pass -use_ps=true")
     if not get_flag("device_pipeline"):
         raise NotImplementedError(
-            "the host-batch PS loop (-device_pipeline=false) is not "
-            "ported yet (ROADMAP B9)")
-    if get_flag("stopwords"):
-        raise NotImplementedError(
-            "-stopwords is not ported yet (ROADMAP A7)")
+            "the host-batch loop (-device_pipeline=false) is not ported "
+            "yet (ROADMAP B9)")
 
+    stopwords = _read_stopwords(get_flag("stopwords")) \
+        if get_flag("stopwords") else None
     if get_flag("vocab_file"):
         dictionary = Dictionary.load(get_flag("vocab_file"))
     else:
         dictionary = Dictionary.build(train_file,
-                                      min_count=config.min_count)
+                                      min_count=config.min_count,
+                                      stopwords=stopwords)
     log.info("vocab: %d words, %d tokens", dictionary.size,
              dictionary.total_count)
 
-    mv_init([])
-    model = PSWord2Vec(config, dictionary)
+    if config.use_ps:
+        mv_init([], device=device)
+        model: Word2Vec = PSWord2Vec(config, dictionary)
+    else:
+        model = Word2Vec(config, dictionary, device=device)
     corpus = TokenizedCorpus.build(dictionary, train_file)
-    trainer = PSDeviceCorpusTrainer(model, corpus)
+    trainer = (PSDeviceCorpusTrainer(model, corpus) if config.use_ps
+               else DeviceCorpusTrainer(model, corpus))
     # The dictionary (one Python string per word) and the corpus live
     # for the whole run: keep the cyclic GC from re-walking them between
-    # blocks (a full collection of a ~1M-word heap takes tens of ms).
+    # steps (a full collection of a ~1M-word heap takes tens of ms).
     gc.collect()
     gc.freeze()
     start = time.perf_counter()
@@ -105,9 +129,11 @@ def run(argv=None) -> PSWord2Vec:
         log.info("epoch %d: avg pair loss %.4f, %.0f words/s", epoch,
                  loss_sum / max(pair_count, 1),
                  model.trained_words / max(elapsed, 1e-9))
-    if model._in_table.zoo.rank == 0 and get_flag("output_file"):
+    should_save = not config.use_ps or model._in_table.zoo.rank == 0
+    if should_save and get_flag("output_file"):
         model.save_embeddings(get_flag("output_file"))
-    mv_shutdown()
+    if config.use_ps:
+        mv_shutdown()
     return model
 
 
