@@ -4,7 +4,7 @@ CUDA card.
 
 Phases, each fatal on failure:
 
-1. build the eight hand-written kernels from ``multiverso_tpu_torch/csrc``
+1. build the ten hand-written kernels from ``multiverso_tpu_torch/csrc``
    (one ``nvcc`` per source, all started together) and print the build
    time and ``ptxas`` resource usage;
 2. set up the main path at the benchmark's full width: the synthetic
@@ -40,10 +40,37 @@ Phases, each fatal on failure:
    the host clock; the same steps under ``torch.profiler`` (device ms a
    step, the card's busy share); finite losses; and the topic corpus
    trained on the card and on the CPU with the same draws, loss and
-   both tables agreeing.
+   both tables agreeing;
+7. the PS device pipeline's other configurations, each under its own
+   ``mv.init``: CBOW (32768 centers a block, neg_block 8), HS skip-gram
+   and HS CBOW (32768, within ``_hs_center_cap``), the per-pair quality
+   mode (2048 centers, 4 blocks a dispatch) and SGNS at 8 blocks a
+   dispatch: as phase 6 per path (K1 and the step kernel against their
+   plain versions at block 0's call, K2 and K3 at the first dispatch's
+   pulls and pushes — all G blocks' ids, the per-pair mode's band and
+   all its negatives; max(2G, 8) blocks counted, then profiled; finite
+   tables), and the topic corpus trained on the card and on the CPU
+   with the same draws;
+8. the host-batch trainer (``-device_pipeline=false``) in all four modes,
+   locally (``Word2Vec``, batches of 32768 pairs launched one by one) and
+   through the parameter server (``PSWord2Vec``, batches of 131072,
+   neg_block 8, pipelined behind a ``BlockLoader``): K9 or K10 against
+   its plain version at the first batch's ids over random tables, timed
+   beside its bound, with K2 (the PS pulls) and K3 (its gradients; on
+   the PS path also the server's add of the delta buffers);
+   2 warm-up batches, then 16 batches locally or 4 through the PS
+   counted and profiled (words/s, the card's busy share; every
+   kernel of the path must launch); finite tables; the topic corpus
+   trained on the card and on the CPU with the same draws.
 
-Prints one JSON ``kernels`` line (one entry a path and kernel: ``ps`` or
-``local_<mode>``, with that path's launches), the card's name and
+Phases 1-6 are as the second slice left them, the small-input checks
+now also comparing example counts, and K2 and K3 timed over all the
+calls of a step (both tables) instead of the output table's alone. One
+Huffman tree of the bench dictionary serves every HS model of the run.
+
+Prints one JSON ``kernels`` line (one entry a path and kernel: ``ps``,
+``local_<mode>``, ``ps_<mode>``, ``hb_local_<mode>`` or
+``hb_ps_<mode>``, with that path's launches), the card's name and
 power limit, and
 as its last line ``{"ok": true, "device": {...}}``. Exits non-zero with
 no result when CUDA is not available or the package is missing.
@@ -51,10 +78,10 @@ no result when CUDA is not available or the package is missing.
 Usage: ``python3 chip_smoke.py`` (one card). ``--profile DIR`` adds a
 ``torch.profiler`` trace of 8 more blocks (Chrome trace in DIR, the
 device's busy share and the host monitors) and keeps the Chrome trace
-of the local SGNS steps. ``--cpu-rehearsal`` runs phases 2, 4, 5 and 6
-at a tiny size on the CPU with the plain versions (no kernels, no
-timing, no result line, exit code 3) to check the control flow on a
-host without a card.
+of every counted path. ``--cpu-rehearsal`` runs phases 2 and 4-8 at a
+tiny size on the CPU with the plain versions (no kernels, no timing, no
+result line, exit code 3) to check the control flow on a host without a
+card.
 """
 
 from __future__ import annotations
@@ -97,6 +124,56 @@ LOCAL_MODES = (
     ("per_pair", dict(per_pair=True), 2048, 32, "pair_offset_grad",
      _CSRC + "pair_offset.cu", _REF + "233"),
 )
+
+
+# The PS pipeline's other configurations (bench.py:139-151, run_ps and
+# run_quality): (path, config flags, centers a block, blocks a dispatch,
+# step kernel, its source, the JAX program it replaces).
+PS_MODES = (
+    ("ps_cbow", dict(cbow=True, neg_block=NEG_BLOCK), CENTERS, 1,
+     "banded_cbow_grad", _CSRC + "banded_cbow.cu", _REF + "729"),
+    ("ps_hs_sg", dict(hs=True, negative=0), CENTERS, 1,
+     "banded_hs_sg_grad", _CSRC + "banded_hs.cu", _REF + "664"),
+    ("ps_hs_cbow", dict(hs=True, cbow=True, negative=0), CENTERS, 1,
+     "hs_cbow_grad", _CSRC + "banded_hs.cu", _REF + "664"),
+    ("ps_per_pair", dict(per_pair=True), 2048, 4, "pair_offset_grad",
+     _CSRC + "pair_offset.cu", _REF + "729"),
+    ("ps_sgns_g8", dict(neg_block=NEG_BLOCK), CENTERS, 8,
+     "banded_sgns_grad", _CSRC + "banded_sgns.cu", _REF + "809"),
+)
+
+# The host-batch trainer (-device_pipeline=false): (mode, config flags,
+# step kernel, its source); the local form replaces model.py:395
+# (_make_step_core), the PS form model.py:755 (_build_ps_step).
+_MODEL_REF = "multiverso_tpu/models/wordembedding/model.py:"
+HB_MODES = (
+    ("sgns", dict(), "pairlist_ns_grad", _CSRC + "pairlist_ns.cu"),
+    ("cbow", dict(cbow=True), "pairlist_ns_grad", _CSRC + "pairlist_ns.cu"),
+    ("hs_sg", dict(hs=True, negative=0), "pairlist_hs_grad",
+     _CSRC + "pairlist_hs.cu"),
+    ("hs_cbow", dict(hs=True, cbow=True, negative=0), "pairlist_hs_grad",
+     _CSRC + "pairlist_hs.cu"),
+)
+# (pairs a batch, neg_block, counted batches): bench.py:88 BATCH;
+# bench.py:399 HOSTBATCH_SIZE with run_hostbatch's neg_block.
+HB_LOCAL = (32768, 1, 16)
+HB_PS = (131072, NEG_BLOCK, 4)
+
+
+def reuse_huffman_trees() -> None:
+    """Build each dictionary's Huffman tree once for all the HS models of
+    this run (seven on the ~1M-word dictionary, ~13 s a build): the
+    port's model module looks ``build_huffman`` up at each call."""
+    from multiverso_tpu_torch.models.wordembedding import model
+    build, trees = model.build_huffman, {}
+
+    def cached(counts):
+        key = (counts.size, hash(counts.tobytes()))
+        if key not in trees:
+            trees[key] = build(counts)
+        return trees[key]
+
+    model.build_huffman = cached
 
 
 def log(msg: str) -> None:
@@ -175,23 +252,31 @@ def setup_main_path(torch, mv, device, workdir: str, sentences: int,
     return model, trainer, dictionary, tokenized
 
 
-def block0_inputs(torch, trainer):
-    """The main path's inputs at block 0: K1's inputs and outputs and
-    the first block's ids."""
+def step0_plan(trainer, u):
+    """The trainer's step-kernel work at step (block) 0 of an epoch whose
+    subsampling uniforms are ``u``: (sub-steps, pmask) as
+    ``device_train._plan`` forms them for either trainer, with fresh
+    draws from a generator on the card."""
     from multiverso_tpu_torch.models.wordembedding import device_train
-    corpus = trainer._corpus
-    C, B = trainer._C, trainer._B
-    W, K = trainer.config.window, trainer.config.negative
+    C, W = trainer._C, trainer.config.window
+    kept, ksent, n_kept = trainer._corpus.prep_epoch(u)
+    kept_pad, ksent_pad = device_train._pad_stream(C, W, kept, ksent)
+    draws = device_train.TorchDraws(trainer.device).step_draws(
+        1234, 0, C, W, trainer._neg_shape(), trainer._vocab)
+    return device_train._plan(trainer.config, trainer._tables, C,
+                              trainer._B, trainer._per_pair, draws,
+                              kept_pad, ksent_pad, int(n_kept), 0, -0.025)
+
+
+def block0_inputs(torch, trainer):
+    """The main path's inputs at block 0: K1's uniforms and the first
+    block's ids."""
     gen = torch.Generator(device=trainer.device)
     gen.manual_seed(1234)
-    u = torch.rand(corpus.n_tokens, generator=gen, device=trainer.device)
-    kept, ksent, n_kept = corpus.prep_epoch(u)
-    kept_pad, ksent_pad = device_train._pad_stream(C, W, kept, ksent)
-    draws = device_train.TorchDraws(trainer.device).block_draws(
-        0, 0, C, W, C // B, K, int(trainer._neg_prob.shape[0]))
-    in_ids, out_ids, pmask = device_train._block_ids(
-        C, W, kept_pad, ksent_pad, trainer._neg_prob, trainer._neg_alias,
-        draws, 0, int(n_kept))
+    u = torch.rand(trainer._corpus.n_tokens, generator=gen,
+                   device=trainer.device)
+    subs, pmask = step0_plan(trainer, u)
+    in_ids, out_ids, _, _ = subs[0]
     return u, in_ids, out_ids, pmask
 
 
@@ -228,26 +313,28 @@ def check_subsample(torch, corpus, u):
 
 def check_gather(torch, cases, D: int):
     """K2 on ``cases``, the step's (table, ids) pairs: bit-exact on
-    every pair; timed on the last (the output table's)."""
+    every pair; timed over all of them, as the step launches them."""
     from multiverso_tpu_torch.kernels import rows
-    err = 0.0
+    err, n_bytes = 0.0, 0
     for table, ids in cases:
         g = rows.row_gather(table, ids, D)
         r = rows.row_gather_plain(table, ids, D)
         err = max(err, float((g - r).abs().max()))
-    table, ids = cases[-1]
-    k = ids.numel()
-    uniq = int(torch.unique(ids).numel())
-    ids64 = ids.to(torch.int64)
+        k = ids.numel()
+        n_bytes += k * 4 + int(torch.unique(ids).numel()) * D * 4 \
+            + k * D * 4
+    lookups = [(table, ids.to(torch.int64)) for table, ids in cases]
     return dict(
         name="row_gather", tol="bit-exact", max_abs_err=err, ok=err == 0.0,
         source="multiverso_tpu_torch/csrc/row_gather.cu",
         replaces="multiverso_tpu/tables/matrix_table.py:2761",
-        ms=time_ms(torch, lambda: rows.row_gather(table, ids, D)),
-        plain_ms=time_ms(torch, lambda: rows.row_gather_plain(table, ids,
-                                                              D)),
-        library_ms=time_ms(torch, lambda: table.index_select(0, ids64)),
-        bound=bound(k * 4 + uniq * D * 4 + k * D * 4))
+        ms=time_ms(torch, lambda: [rows.row_gather(t, ids, D)
+                                   for t, ids in cases]),
+        plain_ms=time_ms(torch, lambda: [rows.row_gather_plain(t, ids, D)
+                                         for t, ids in cases]),
+        library_ms=time_ms(torch, lambda: [t.index_select(0, ids)
+                                           for t, ids in lookups]),
+        bound=bound(n_bytes))
 
 
 def on_grid(torch, table, ids, delta):
@@ -271,9 +358,10 @@ def on_grid(torch, table, ids, delta):
 def check_scatter(torch, cases, D: int):
     """K3 on ``cases``, the step's (table, ids, delta) triples, each
     rounded ``on_grid``: bit-exact on every triple, duplicate ids and
-    the Zipf head included; timed on the last (the output table's)."""
+    the Zipf head included; timed over all of them, as the step launches
+    them."""
     from multiverso_tpu_torch.kernels import rows
-    err, nonzero = 0.0, []
+    err, nonzero, n_bytes = 0.0, [], 0
     for table, ids, delta in cases:
         base, grid_delta = on_grid(torch, table, ids, delta)
         nonzero.append(float((grid_delta != 0).float().mean()))
@@ -282,24 +370,25 @@ def check_scatter(torch, cases, D: int):
         rows.row_scatter_add_plain(base, ids, grid_delta, 1.0)
         err = max(err, float((a - base).abs().max()))
         del a, base
-    table, ids, delta = cases[-1]
-    k = ids.numel()
-    uniq = int(torch.unique(ids).numel())
-    ids64 = ids.to(torch.int64)
-    scratch = table.clone()
+        k = ids.numel()
+        n_bytes += k * 4 + k * D * 4 \
+            + 2 * int(torch.unique(ids).numel()) * D * 4
+    scratch = [(table.clone(), ids, ids.to(torch.int64), delta)
+               for table, ids, delta in cases]
     result = dict(
         name="row_scatter_add",
         tol=f"bit-exact on grid-rounded deltas ({[round(x, 3) for x in nonzero]}"
             f" of them nonzero)", max_abs_err=err, ok=err == 0.0,
         source="multiverso_tpu_torch/csrc/row_scatter_add.cu",
         replaces="multiverso_tpu/updater/rules.py:94",
-        ms=time_ms(torch, lambda: rows.row_scatter_add(scratch, ids, delta,
-                                                       1.0)),
-        plain_ms=time_ms(torch, lambda: rows.row_scatter_add_plain(
-            scratch, ids, delta, 1.0)),
-        library_ms=time_ms(torch, lambda: scratch.index_add_(0, ids64,
-                                                             delta)),
-        bound=bound(k * 4 + k * D * 4 + 2 * uniq * D * 4))
+        ms=time_ms(torch, lambda: [rows.row_scatter_add(t, ids, d, 1.0)
+                                   for t, ids, _, d in scratch]),
+        plain_ms=time_ms(torch, lambda: [
+            rows.row_scatter_add_plain(t, ids, d, 1.0)
+            for t, ids, _, d in scratch]),
+        library_ms=time_ms(torch, lambda: [t.index_add_(0, ids64, d)
+                                           for t, _, ids64, d in scratch]),
+        bound=bound(n_bytes))
     del scratch
     return result
 
@@ -557,9 +646,11 @@ def write_topics(workdir: str) -> str:
     return path
 
 
-def small_run(torch, mv, device, workdir: str):
-    """Phase 5b helper: the tests' topic corpus, 6 blocks of 128
-    centers, draws from one CPU generator; returns (losses, in, out)."""
+def small_run(torch, mv, device, workdir: str, flags=None, G: int = 1):
+    """Phase 5b and 7 helper: the tests' topic corpus, 6 blocks of 128
+    centers (``flags`` added to the PS SGNS config, G blocks a
+    dispatch), draws from one CPU generator; returns (losses a dispatch,
+    examples, in rows, out rows)."""
     import numpy as np
     from multiverso_tpu_torch.models.wordembedding import (
         Dictionary, PSDeviceCorpusTrainer, PSWord2Vec, TokenizedCorpus,
@@ -569,18 +660,18 @@ def small_run(torch, mv, device, workdir: str):
     tokenized = TokenizedCorpus.build(dictionary, path)
     mv.init([], device=str(device))
     try:
-        config = Word2VecConfig(embedding_size=16, window=3, negative=5,
-                                epochs=2, min_count=1, sample=1e-2,
-                                use_ps=True, neg_block=8)
+        config = Word2VecConfig(**{**dict(
+            embedding_size=16, window=3, negative=5, epochs=2, min_count=1,
+            sample=1e-2, use_ps=True, neg_block=8), **(flags or {})})
         model = PSWord2Vec(config, dictionary)
         trainer = PSDeviceCorpusTrainer(
-            model, tokenized, centers_per_step=128,
+            model, tokenized, centers_per_step=128, blocks_per_dispatch=G,
             draws=TorchDraws(device, draw_device="cpu"))
         losses = []
-        trainer.train_epoch(seed=5, max_steps=6,
-                            block_hook=lambda _w: losses.append(
-                                float(trainer.last_loss)))
-        return (np.array(losses), model._in_table.get(),
+        _, examples = trainer.train_epoch(
+            seed=5, max_steps=6, block_hook=lambda _w: losses.append(
+                float(trainer.last_loss)))
+        return (np.array(losses), examples, model._in_table.get(),
                 model._out_table.get())
     finally:
         mv.shutdown()
@@ -590,10 +681,10 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def local_kernel_case(torch, trainer, table_in, table_out):
-    """The mode's step-kernel call at step 0 of an epoch, as the
-    trainer plans it (the per-pair mode: the sub-step of offset -1, the
-    densest of the 2W), with rows from the random tables
+def step_kernel_case(torch, trainer, table_in, table_out):
+    """The mode's step-kernel call at step (block) 0 of an epoch, as
+    either trainer plans it (the per-pair mode: the sub-step of offset
+    -1, the densest of the 2W), with rows from the random tables
     ``table_in``/``table_out``; its plain version; and the bytes and
     float32 operations the call needs for this data (masked Huffman
     nodes and invalid pairs are not read): (kernel, plain, args, bytes,
@@ -601,14 +692,10 @@ def local_kernel_case(torch, trainer, table_in, table_out):
     out_ids)."""
     from multiverso_tpu_torch.kernels import cbow, hs, objective, pair
     from multiverso_tpu_torch.kernels import rows, sgns
-    from multiverso_tpu_torch.models.wordembedding import device_train
     C, W, K = trainer._C, trainer.config.window, trainer.config.negative
     D = trainer.config.embedding_size
     u = trainer._draws.epoch_uniforms(1234, trainer._corpus.n_tokens)
-    kept, ksent, n_kept = trainer._corpus.prep_epoch(u)
-    kept_pad, ksent_pad = device_train._pad_stream(C, W, kept, ksent)
-    subs, pmask = trainer._plan(1234, 0, kept_pad, ksent_pad, int(n_kept),
-                                -0.025)
+    subs, pmask = step0_plan(trainer, u)
     in_ids, out_ids, kernel, extra = subs[W - 1 if trainer._per_pair
                                           else 0]
     ids = (u, in_ids, out_ids)
@@ -625,7 +712,7 @@ def local_kernel_case(torch, trainer, table_in, table_out):
     if kernel in (hs.banded_hs_sg_grad, hs.hs_cbow_grad):
         path, code = extra[0], extra[1]
         ok = (path >= 0) & (code >= 0)
-        log(f"[local kernel {kernel.__name__}] Huffman paths of up to "
+        log(f"[kernel {kernel.__name__}] Huffman paths of up to "
             f"L={path.shape[1]} nodes; {float((path < 0).float().mean()):.1%}"
             f" of step 0's path ids are padding")
         if kernel is hs.hs_cbow_grad:
@@ -654,36 +741,91 @@ def local_kernel_case(torch, trainer, table_in, table_out):
             + 2 * D * nb * K * trainer._B, ids)
 
 
-def check_local_kernels(torch, trainer, mode: str, name: str, source: str,
-                        replaces: str, card: str):
-    """Every kernel of the mode's path against its plain version on the
-    card, at step 0's shapes over random tables (so some logits pass
-    +-6), timed: K1 on the epoch's uniforms, K2 on the step's ids into
-    both tables, the step kernel (tolerance as K4's: gradients |err| <=
-    1e-5 + 1e-4 |plain|, loss relative error <= 1e-5, counts equal) and
-    K3 scattering the step kernel's gradients back into both tables."""
-    model, D = trainer.model, trainer.config.embedding_size
-    gen = torch.Generator(device=trainer.device)
+def random_tables(torch, device, shapes):
+    """Random float32 tables of ``shapes`` (seeded; rows of scale 0.5,
+    so some logits pass +-6)."""
+    gen = torch.Generator(device=device)
     gen.manual_seed(99)
-    table_in = torch.randn(model._emb_in.shape, generator=gen,
-                           device=trainer.device) * 0.5
-    table_out = torch.randn(model._emb_out.shape, generator=gen,
-                            device=trainer.device) * 0.5
-    kernel, plain, args, n_bytes, flops, (u, in_ids, out_ids) = \
-        local_kernel_case(torch, trainer, table_in, table_out)
-    results = [check_subsample(torch, trainer._corpus, u),
-               check_gather(torch, ((table_in, in_ids),
-                                    (table_out, out_ids)), D)]
-    got = kernel(*args)
-    ref = plain(*args)
+    return [torch.randn(shape, generator=gen, device=device) * 0.5
+            for shape in shapes]
+
+
+def compare_step(got, ref):
+    """(max abs error of the two gradients, ok, loss relative error):
+    gradients |err| <= 1e-5 + 1e-4 |plain|, loss relative error <= 1e-5,
+    counts equal."""
     err, ok = 0.0, True
-    for g, r in zip(got[:2], ref[:2]):      # the two gradients
+    for g, r in zip(got[:2], ref[:2]):
         diff = (g - r).abs()
         err = max(err, float(diff.max()))
         ok = ok and bool((diff <= 1e-5 + 1e-4 * r.abs()).all())
     loss_rel = abs(float(got[2]) - float(ref[2])) / max(abs(float(ref[2])),
                                                        1e-30)
     ok = ok and loss_rel <= 1e-5 and float(got[3]) == float(ref[3])
+    return err, ok, loss_rel
+
+
+def ps_group_case(torch, trainer, u, table_in, table_out):
+    """What a PS trainer's first dispatch pulls and pushes (the first
+    group of G blocks of an epoch whose uniforms are ``u``, as
+    ``train_epoch`` forms it), over the random tables: the G blocks' pull
+    ids joined (per-pair: each block's band and all its 2W*C*K
+    negatives) and the push deltas of each block's step on its slice of
+    the pulled rows: ((table_in, in_ids, d_in), (table_out, out_ids,
+    d_out)), the server's K2 and K3 work for the dispatch."""
+    from multiverso_tpu_torch.kernels import rows
+    from multiverso_tpu_torch.models.wordembedding import device_train
+    C, G, W = trainer._C, trainer._G, trainer.config.window
+    D = trainer.config.embedding_size
+    kept, ksent, n_kept = trainer._corpus.prep_epoch(u)
+    kept_pad, ksent_pad = device_train._pad_stream(C, W, kept, ksent)
+    n_kept = int(n_kept)
+    draws = device_train.TorchDraws(trainer.device).group_draws(
+        1234, 0, G, C, W, trainer._neg_shape(), trainer._vocab)
+    blocks = [device_train._block_ids(
+        trainer.config, trainer._tables, C, trainer._B, trainer._per_pair,
+        draws[i], kept_pad, ksent_pad, n_kept, i * C, 0.025, 1.0)
+        for i in range(min(G, max(math.ceil(n_kept / C), 1)))]
+    in_ids = device_train._cat([b[0] for b in blocks])
+    out_ids = device_train._cat([b[1] for b in blocks])
+    v = rows.row_gather(table_in, in_ids, D)
+    u_rows = rows.row_gather(table_out, out_ids, D)
+    n_in, n_out = blocks[0][0].numel(), blocks[0][1].numel()
+    d_in, d_out = [], []
+    for i, (_, _, step) in enumerate(blocks):
+        dv, du, _, _ = step(v[i * n_in:(i + 1) * n_in],
+                            u_rows[i * n_out:(i + 1) * n_out])
+        d_in.append(dv)
+        d_out.append(du)
+    log(f"[ps_group_case] G={len(blocks)} blocks: pulls and pushes of "
+        f"{in_ids.numel()} input and {out_ids.numel()} output rows")
+    return ((table_in, in_ids, device_train._cat(d_in)),
+            (table_out, out_ids, device_train._cat(d_out)))
+
+
+def check_step_kernels(torch, trainer, path: str, name: str, source: str,
+                       replaces: str, card: str, shapes, ps: bool = False):
+    """Every kernel of a device-pipeline path against its plain version
+    on the card over random tables of ``shapes`` (the model's two),
+    timed: K1 on the epoch's uniforms; the step kernel
+    (``compare_step``) at step (block) 0's call; K2 and K3 at the step's
+    ids into both tables, K3 scattering the step kernel's gradients —
+    with ``ps``, at what the first dispatch pulls and pushes
+    (``ps_group_case``: all G blocks' ids, the per-pair mode's
+    negatives included)."""
+    D = trainer.config.embedding_size
+    table_in, table_out = random_tables(torch, trainer.device, shapes)
+    kernel, plain, args, n_bytes, flops, (u, in_ids, out_ids) = \
+        step_kernel_case(torch, trainer, table_in, table_out)
+    got = kernel(*args)
+    if ps:
+        scatters = ps_group_case(torch, trainer, u, table_in, table_out)
+    else:
+        scatters = ((table_in, in_ids, got[0]), (table_out, out_ids, got[1]))
+    results = [check_subsample(torch, trainer._corpus, u),
+               check_gather(torch, tuple(c[:2] for c in scatters), D)]
+    ref = plain(*args)
+    err, ok, loss_rel = compare_step(got, ref)
     results.append(dict(
         name=name, tol=f"grads |err| <= 1e-5 + 1e-4 |plain|; loss rel err "
         f"{loss_rel:.2g} <= 1e-5; counts equal", max_abs_err=err, ok=ok,
@@ -691,73 +833,114 @@ def check_local_kernels(torch, trainer, mode: str, name: str, source: str,
         ms=time_ms(torch, lambda: kernel(*args)),
         plain_ms=time_ms(torch, lambda: plain(*args)), library_ms=None,
         bound=bound(n_bytes, flops)))
-    log(f"[local kernel {name}] C={trainer._C} | bound from "
+    log(f"[kernel {name} @ {path}] C={trainer._C} | bound from "
         f"{n_bytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP")
-    results.append(check_scatter(torch, ((table_in, in_ids, got[0]),
-                                         (table_out, out_ids, got[1])), D))
-    del table_in, table_out, got, ref, args
-    return report(results, card, f"local_{mode}")
+    results.append(check_scatter(torch, scatters, D))
+    del table_in, table_out, got, ref, args, scatters
+    return report(results, card, path)
 
 
-def drive_local_mode(torch, trainer, mode: str, kernel: str,
-                     card: str, workdir: str, profile_dir: str):
-    """The mode's main path: 2 groups of G steps with every launch count
-    reset just before and read just after, then the same steps under
-    torch.profiler. Returns the counts."""
+def check_tables(np, model, path: str, step: int = 997) -> None:
+    """Every ``step``-th row of both tables finite, and the output table
+    updated — local tensors or PS tables."""
+    rows = []
+    for i in (0, 1):
+        if hasattr(model, "_in_table"):
+            table = (model._in_table, model._out_table)[i]
+            rows.append(table.get_rows(
+                np.arange(0, table.num_row, step, dtype=np.int32)))
+        else:
+            rows.append((model._emb_in, model._emb_out)[i][::step]
+                        .cpu().numpy())
+    if not all(np.isfinite(r).all() for r in rows):
+        raise AssertionError(f"{path}: non-finite table rows")
+    if not np.abs(rows[1]).max() > 0:
+        raise AssertionError(f"{path}: output table never updated")
+
+
+def drive_counted(torch, model, path: str, need, card: str, workdir: str,
+                  profile_dir: str, run, steps: int, unit: str):
+    """A path's main run: ``run()`` (-> (loss, examples)) with every
+    launch count reset just before and read just after, words/s on the
+    host clock; then the same run under torch.profiler (device ms a
+    ``unit`` of kernels, the card's busy share; the Chrome trace kept in
+    ``profile_dir`` when given). Every kernel of ``need`` must have
+    launched; the host monitors of the counted run (the PS paths' pull
+    stall, step, push and server times) are logged. Returns the
+    counts."""
     from multiverso_tpu_torch import kernels
-    model, G = trainer.model, trainer._G
-    cuda = trainer.device.type == "cuda"
+    from multiverso_tpu_torch.util.dashboard import Dashboard
+    cuda = torch.cuda.is_available() and model_device(model).type == "cuda"
 
     def sync():
         if cuda:
             torch.cuda.synchronize()
 
-    trainer.train_epoch(seed=99, max_steps=2)    # warm-up, not counted
     sync()
+    Dashboard.reset()
     kernels.reset_launch_counts()
     words0 = model.trained_words
     t0 = time.perf_counter()
-    loss, examples = trainer.train_epoch(seed=0, max_steps=2 * G)
+    loss, examples = run()
     sync()
     elapsed = time.perf_counter() - t0
     counts = kernels.launch_counts()
     words = model.trained_words - words0
-    log(f"[local {mode}] {card} | {2 * G} steps of {trainer._C} centers "
-        f"in {elapsed:.4f}s | {words / elapsed:.0f} words/s | "
-        f"{elapsed / (2 * G) * 1e3:.3f} ms/step | examples {examples:.0f} "
-        f"| avg loss {loss / max(examples, 1):.4f}")
-    log(f"[local {mode}] kernel launches {counts}")
+    log(f"[{path}] {card} | {steps} x {unit} in {elapsed:.4f}s | "
+        f"{words / elapsed:.0f} words/s | {elapsed / steps * 1e3:.3f} ms a "
+        f"{unit} | examples {examples:.0f} | avg loss "
+        f"{loss / max(examples, 1):.4f}")
+    log(f"[{path}] kernel launches {counts}")
+    for line in Dashboard.display().splitlines():
+        log(f"[{path}] {line}")
     if not (math.isfinite(loss) and examples > 0):
-        raise AssertionError(f"local {mode}: loss {loss}, examples "
-                             f"{examples}")
-    sample = torch.arange(0, model._emb_out.shape[0], 997,
-                          device=trainer.device)
-    for table in (model._emb_in, model._emb_out):
-        if not bool(torch.isfinite(table[sample]).all()):
-            raise AssertionError(f"local {mode}: non-finite table rows")
-    if not bool((model._emb_out[sample] != 0).any()):
-        raise AssertionError(f"local {mode}: output table never updated")
-    need = ("subsample_compact", "row_gather", "row_scatter_add", kernel)
+        raise AssertionError(f"{path}: loss {loss}, examples {examples}")
     missing = [n for n in need if counts[n] <= 0] if cuda else []
     if missing:
-        raise AssertionError(f"local {mode} never launched {missing}")
+        raise AssertionError(f"{path} never launched {missing}")
     if cuda:
         import torch.profiler as tp
         with tp.profile(activities=[tp.ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            trainer.train_epoch(seed=0, max_steps=2 * G)
+            run()
             sync()
             wall = time.perf_counter() - t0
-        trace = os.path.join(profile_dir or workdir,
-                             f"local_{mode}_trace.json")
+        trace = os.path.join(profile_dir or workdir, f"{path}_trace.json")
         n_kernels, busy_ms, kernel_ms = trace_kernels(prof, trace)
-        if profile_dir and mode == "sgns":
-            log(f"[profile] local sgns Chrome trace: {trace}")
-        log(f"[local {mode}] profiled: {n_kernels} kernels, device "
-            f"{kernel_ms / (2 * G):.4f} ms/step of kernels, busy "
+        log(f"[{path}] profiled: {n_kernels} kernels, device "
+            f"{kernel_ms / steps:.4f} ms a {unit} of kernels, busy "
             f"{busy_ms:.2f} ms of {wall * 1e3:.2f} ms wall "
             f"({busy_ms / (wall * 1e3):.1%})")
     return counts
+
+
+def model_shapes(model):
+    """The shapes of the model's two tables (local or PS)."""
+    if hasattr(model, "_in_table"):
+        return tuple((t.num_row, t.num_col)
+                     for t in (model._in_table, model._out_table))
+    return (tuple(model._emb_in.shape), tuple(model._emb_out.shape))
+
+
+def model_device(model):
+    return model._in_table.zoo.device if hasattr(model, "_in_table") \
+        else model.device
+
+
+def compare_small(np, tag: str, got, ref) -> None:
+    """Card vs CPU on the small input: (loss, examples, in rows, out
+    rows), examples equal, the rest at rtol 1e-4 / atol 1e-6."""
+    if got[1] != ref[1]:
+        raise AssertionError(f"small input {tag}: examples {got[1]} vs "
+                             f"{ref[1]}")
+    for name, g, r in zip(("loss", "in rows", "out rows"),
+                          (got[0], got[2], got[3]),
+                          (ref[0], ref[2], ref[3])):
+        np.testing.assert_allclose(g, r, rtol=1e-4, atol=1e-6,
+                                   err_msg=f"{tag} {name}")
+    log(f"[small input] {tag}: card vs CPU plain path: loss "
+        f"{float(np.sum(got[0])):.6f} vs {float(np.sum(ref[0])):.6f}, "
+        f"examples {got[1]:.0f}, both tables agree (rtol 1e-4, atol 1e-6)")
 
 
 def small_local_run(torch, device, workdir: str, flags: dict):
@@ -774,11 +957,7 @@ def small_local_run(torch, device, workdir: str, flags: dict):
         embedding_size=16, window=3, negative=5, epochs=2, min_count=1,
         sample=1e-2), **flags})
     model = Word2Vec(config, dictionary, device=device)
-    # The same initial input rows on both devices (the card's generator
-    # draws other numbers than the CPU's).
-    init = np.random.default_rng(1).uniform(
-        -0.5 / 16, 0.5 / 16, tuple(model._emb_in.shape)).astype(np.float32)
-    model._emb_in.copy_(torch.from_numpy(init))
+    same_init(torch, model)
     trainer = DeviceCorpusTrainer(model, tokenized, centers_per_step=128,
                                   steps_per_dispatch=4,
                                   draws=TorchDraws(device,
@@ -786,6 +965,16 @@ def small_local_run(torch, device, workdir: str, flags: dict):
     loss, examples = trainer.train_epoch(seed=5, max_steps=6)
     return (loss, examples, model._emb_in.cpu().numpy(),
             model._emb_out.cpu().numpy())
+
+
+def same_init(torch, model) -> None:
+    """The same initial input rows on both devices (the card's generator
+    draws other numbers than the CPU's)."""
+    import numpy as np
+    dim = model._emb_in.shape[1]
+    init = np.random.default_rng(1).uniform(
+        -0.5 / dim, 0.5 / dim, tuple(model._emb_in.shape)).astype(np.float32)
+    model._emb_in.copy_(torch.from_numpy(init))
 
 
 def run_local_phase(torch, np, device, dictionary, tokenized, card: str,
@@ -798,41 +987,335 @@ def run_local_phase(torch, np, device, dictionary, tokenized, card: str,
         DeviceCorpusTrainer, Word2Vec, Word2VecConfig)
     results, counts = [], {}
     for mode, flags, C, G, kernel, source, replaces in LOCAL_MODES:
+        path = f"local_{mode}"
         t0 = time.perf_counter()
         config = Word2VecConfig(**{**dict(
             embedding_size=dim, window=WINDOW, negative=NEG, epochs=3,
             min_count=1, sample=1e-3), **flags})
         model = Word2Vec(config, dictionary, device=device)
         trainer = DeviceCorpusTrainer(model, tokenized, C // scale_down, G)
-        log(f"[local {mode}] model + trainer {time.perf_counter() - t0:.1f}s"
+        log(f"[{path}] model + trainer {time.perf_counter() - t0:.1f}s"
             f" | tables {tuple(model._emb_in.shape)} in, "
             f"{tuple(model._emb_out.shape)} out | C={trainer._C} G={G}")
+        shapes = model_shapes(model)
         if device.type == "cuda":
-            results += check_local_kernels(torch, trainer, mode, kernel,
-                                           source, replaces, card)
+            results += check_step_kernels(torch, trainer, path, kernel,
+                                          source, replaces, card, shapes)
         else:   # the rehearsal: the case's shapes and byte counts only
-            local_kernel_case(torch, trainer, model._emb_in,
-                              model._emb_out)
-        counts[f"local_{mode}"] = drive_local_mode(torch, trainer, mode, kernel, card,
-                                        workdir, profile_dir)
+            step_kernel_case(torch, trainer,
+                             *random_tables(torch, device, shapes))
+        trainer.train_epoch(seed=99, max_steps=2)    # warm-up, not counted
+        counts[path] = drive_counted(
+            torch, model, path, ("subsample_compact", "row_gather",
+                                 "row_scatter_add", kernel),
+            card, workdir, profile_dir,
+            lambda: trainer.train_epoch(seed=0, max_steps=2 * G), 2 * G,
+            "step")
+        check_tables(np, model, path)
         del model, trainer
-        gc.collect()
-        if device.type == "cuda":
-            torch.cuda.empty_cache()
+        free(torch, device)
     for mode, flags, *_ in LOCAL_MODES:
-        ref = small_local_run(torch, torch.device("cpu"), workdir, flags)
-        got = small_local_run(torch, device, workdir, flags)
-        if got[1] != ref[1]:
-            raise AssertionError(f"small input {mode}: examples {got[1]} "
-                                 f"vs {ref[1]}")
-        for name, g, r in zip(("loss", "in rows", "out rows"),
-                              (got[0], got[2], got[3]),
-                              (ref[0], ref[2], ref[3])):
-            np.testing.assert_allclose(g, r, rtol=1e-4, atol=1e-6,
-                                       err_msg=f"{mode} {name}")
-        log(f"[small input] local {mode}: card vs CPU plain path, 6 steps: "
-            f"loss {got[0]:.6f} vs {ref[0]:.6f}, both tables agree (rtol "
-            f"1e-4, atol 1e-6)")
+        compare_small(np, f"local {mode}, 6 steps",
+                      small_local_run(torch, device, workdir, flags),
+                      small_local_run(torch, torch.device("cpu"), workdir,
+                                      flags))
+    return results, counts
+
+
+def free(torch, device) -> None:
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def run_ps_modes_phase(torch, np, mv, device, dictionary, tokenized,
+                       card: str, workdir: str, profile_dir: str, dim: int,
+                       scale_down: int):
+    """Phase 7: the PS device pipeline's other configurations (CBOW, HS
+    skip-gram, HS CBOW, per-pair at G=4, SGNS at G=8) at the bench's
+    settings, each under its own ``mv.init``: every kernel of the path
+    against its plain version (``check_step_kernels`` with ``ps``), a
+    counted run of max(2G, 8) blocks, finite tables, and the topic
+    corpus trained on the card and on the CPU with the same draws.
+    Returns (kernel results, launch counts per path)."""
+    from multiverso_tpu_torch.models.wordembedding import (
+        PSDeviceCorpusTrainer, PSWord2Vec, Word2VecConfig)
+    results, counts = [], {}
+    for path, flags, C, G, kernel, source, replaces in PS_MODES:
+        t0 = time.perf_counter()
+        mv.init([], device=None if device.type == "cuda" else "cpu")
+        try:
+            config = Word2VecConfig(**{**dict(
+                embedding_size=dim, window=WINDOW, negative=NEG, epochs=3,
+                min_count=1, sample=1e-3, use_ps=True), **flags})
+            model = PSWord2Vec(config, dictionary)
+            trainer = PSDeviceCorpusTrainer(model, tokenized,
+                                            C // scale_down, G)
+            shapes = model_shapes(model)
+            log(f"[{path}] model + trainer {time.perf_counter() - t0:.1f}s "
+                f"| tables {shapes} | C={trainer._C} G={G}")
+            if device.type == "cuda":
+                results += check_step_kernels(torch, trainer, path, kernel,
+                                              source, replaces, card,
+                                              shapes, ps=True)
+            else:   # the rehearsal: the cases' shapes and byte counts
+                tables = random_tables(torch, device, shapes)
+                step_kernel_case(torch, trainer, *tables)
+                ps_group_case(torch, trainer, trainer._draws.epoch_uniforms(
+                    1234, trainer._corpus.n_tokens), *tables)
+                del tables
+            trainer.train_epoch(seed=99, max_steps=G)   # warm-up
+            blocks = max(2 * G, 8)
+            counts[path] = drive_counted(
+                torch, model, path, ("subsample_compact", "row_gather",
+                                     "row_scatter_add", kernel),
+                card, workdir, profile_dir,
+                lambda: trainer.train_epoch(seed=0, max_steps=blocks),
+                blocks, "block")
+            check_tables(np, model, path)
+        finally:
+            mv.shutdown()
+        del model, trainer
+        free(torch, device)
+    for path, flags, _, G, *_ in PS_MODES:
+        compare_small(np, f"{path}, 6 blocks, G={G}",
+                      small_run(torch, mv, device, workdir, flags, G),
+                      small_run(torch, mv, torch.device("cpu"), workdir,
+                                flags, G))
+    return results, counts
+
+
+class CpuBatchDraws:
+    """Host-batch negative draws from a CPU generator seeded per batch:
+    the same numbers for a run on the card and one on the CPU."""
+
+    def batch_draws(self, counter, shape, V):
+        import torch
+        gen = torch.Generator()
+        gen.manual_seed(1000 + counter)
+        return (torch.randint(0, V, shape, generator=gen,
+                              dtype=torch.int32),
+                torch.rand(shape, generator=gen))
+
+
+def hb_batches(dictionary, tokenized, batch_size: int, window: int,
+               cbow: bool, n: int, sample: float = 1e-3):
+    """The first ``n`` batches of an epoch (seed 0) as the app ships
+    them (``iter_pair_batches``)."""
+    from multiverso_tpu_torch.models.wordembedding import iter_pair_batches
+    out = []
+    for batch in iter_pair_batches(dictionary, tokenized,
+                                   batch_size=batch_size, window=window,
+                                   subsample=sample, cbow=cbow, seed=0):
+        out.append(batch)
+        if len(out) == n:
+            break
+    return out
+
+
+def hb_kernel_case(torch, model, batch, tables, ps: bool):
+    """The host-batch step kernel's call on ``batch`` as the path forms
+    it over the random ``tables`` — local: the whole tables and global
+    ids; PS: the rows pulled (K2) at the CompactBatch's padded row sets,
+    and its slot maps — with its plain version, the flat rows K3 adds
+    the gradients into, the pull ids (PS) and the bytes and float32
+    operations the call needs for this data (rows named by live pairs
+    and unmasked nodes read once, every gradient row written once)."""
+    from multiverso_tpu_torch.kernels import pairlist, rows
+    D = tables[0].shape[1]
+    dev = tables[0].device
+    pulls = None
+    if ps:
+        t0 = time.perf_counter()
+        compact = model.prepare(batch)
+        log(f"[hb_kernel_case] host preparation of one batch (prepare, "
+            f"numpy): {(time.perf_counter() - t0) * 1e3:.1f} ms; padded row "
+            f"sets {compact.rows_in_p.size} in, {compact.rows_out_p.size} "
+            f"out ({compact.rows_in.size}, {compact.rows_out.size} real)")
+        in_ids, win_mask, out_args, pm = model._compact_args(compact, dev)
+        pulls = tuple(torch.from_numpy(a).to(dev)
+                      for a in (compact.rows_in_p, compact.rows_out_p))
+        bufs = tuple(rows.row_gather(t, ids, D)
+                     for t, ids in zip(tables, pulls))
+    else:
+        in_ids, win_mask, out_args, pm = model._batch_args(batch)
+        bufs = tables
+    hs = bool(model.config.hs)
+    kernel = pairlist.pairlist_hs_grad if hs else pairlist.pairlist_ns_grad
+    plain = pairlist.pairlist_hs_grad_plain if hs \
+        else pairlist.pairlist_ns_grad_plain
+    args = (bufs[0], bufs[1], in_ids, win_mask, *out_args, pm, -0.025)
+    live = pm > 0
+    in_named = in_ids[live] if win_mask is None \
+        else in_ids[live[:, None] & (win_mask > 0)]
+    if hs:
+        node = live[:, None] & (out_args[1] >= 0)
+        out_rows = out_args[0].reshape(-1)
+        out_named = out_args[0][node]
+        n_terms = int(node.sum())
+    else:
+        negs = out_args[1]
+        out_rows = torch.cat([out_args[0], negs.reshape(-1)])
+        block_live = live.reshape(negs.shape[0], -1).any(dim=1)
+        out_named = torch.cat([out_args[0][live],
+                               negs[block_live].reshape(-1)])
+        n_terms = int(live.sum()) * (1 + negs.shape[1])
+    n_read = int(torch.unique(in_named).numel()
+                 + torch.unique(out_named).numel())
+    written = in_ids.numel() + out_rows.numel()
+    ids = [in_ids, pm, *out_args] + ([] if win_mask is None else [win_mask])
+    n_bytes = (n_read + written) * D * 4 + nbytes(*ids) + 8
+    flops = 6 * D * n_terms + 2 * D * int(in_named.numel())
+    return (kernel, plain, args, bufs, in_ids.reshape(-1), out_rows, pulls,
+            n_bytes, flops)
+
+
+def check_hb_kernels(torch, model, batch, path: str, name: str,
+                     source: str, replaces: str, card: str, ps: bool):
+    """The host-batch path's kernels against their plain versions at the
+    first batch's real ids over random tables of the model's shapes,
+    timed: K2 at the pulls (PS), K9 or K10, and K3 scattering its
+    gradients (local: into the tables; PS: into zeroed delta buffers of
+    the pulled shape, and those buffers into the tables at the padded
+    row sets, as the server applies the push)."""
+    from multiverso_tpu_torch.kernels import rows
+    D = model.config.embedding_size
+    tables = random_tables(torch, model_device(model), model_shapes(model))
+    (kernel, plain, args, bufs, in_rows, out_rows, pulls, n_bytes,
+     flops) = hb_kernel_case(torch, model, batch, tables, ps)
+    results = []
+    if ps:
+        results.append(check_gather(torch, tuple(zip(tables, pulls)), D))
+    got = kernel(*args)
+    ref = plain(*args)
+    err, ok, loss_rel = compare_step(got, ref)
+    results.append(dict(
+        name=name, tol=f"grads |err| <= 1e-5 + 1e-4 |plain|; loss rel err "
+        f"{loss_rel:.2g} <= 1e-5; counts equal", max_abs_err=err, ok=ok,
+        source=source, replaces=replaces,
+        ms=time_ms(torch, lambda: kernel(*args)),
+        plain_ms=time_ms(torch, lambda: plain(*args)), library_ms=None,
+        bound=bound(n_bytes, flops)))
+    log(f"[kernel {name} @ {path}] B={args[4].shape[0]} | buffers "
+        f"{tuple(bufs[0].shape)} in, {tuple(bufs[1].shape)} out | bound "
+        f"from {n_bytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP")
+    scatters = ((bufs[0], in_rows, got[0]), (bufs[1], out_rows, got[1]))
+    if ps:
+        # The client's adds into zeroed delta buffers of the pulled
+        # shape, then the server's adds of those buffers at the padded
+        # row sets into the tables.
+        scatters = tuple((torch.zeros_like(b), ids, g)
+                         for b, ids, g in scatters)
+        deltas = []
+        for zeros, ids, g in scatters:
+            delta = zeros.clone()
+            rows.row_scatter_add(delta, ids, g)
+            deltas.append(delta)
+        scatters += tuple(zip(tables, pulls, deltas))
+        del deltas
+    results.append(check_scatter(torch, scatters, D))
+    del tables, got, ref, args, bufs, scatters
+    return report(results, card, path)
+
+
+def small_hb_run(torch, mv, device, workdir: str, flags: dict, ps: bool):
+    """The topic corpus, 8 batches of 128, negatives from
+    a CPU generator (local) or numpy (PS): (loss, pairs, input rows,
+    output rows)."""
+    from multiverso_tpu_torch.models.wordembedding import (
+        Dictionary, PSWord2Vec, TokenizedCorpus, Word2Vec, Word2VecConfig)
+    path = write_topics(workdir)
+    dictionary = Dictionary.build(path, min_count=1)
+    tokenized = TokenizedCorpus.build(dictionary, path)
+    config = Word2VecConfig(**{**dict(
+        embedding_size=16, window=3, negative=5, epochs=2, min_count=1,
+        sample=1e-2, batch_size=128, use_ps=ps,
+        neg_block=4 if ps else 1), **flags})
+    batches = hb_batches(dictionary, tokenized, 128, 3, config.cbow, 8,
+                         1e-2)
+    if ps:
+        mv.init([], device=str(device))
+        try:
+            model = PSWord2Vec(config, dictionary)
+            loss, pairs = model.train_batches(iter(batches))
+            return (loss, pairs, model._in_table.get(),
+                    model._out_table.get())
+        finally:
+            mv.shutdown()
+    model = Word2Vec(config, dictionary, device=device,
+                     draws=CpuBatchDraws())
+    same_init(torch, model)
+    loss, pairs = model.train_batches(iter(batches))
+    return (loss, pairs, model._emb_in.cpu().numpy(),
+            model._emb_out.cpu().numpy())
+
+
+def run_hostbatch_phase(torch, np, mv, device, dictionary, tokenized,
+                        card: str, workdir: str, profile_dir: str,
+                        dim: int, scale_down: int):
+    """Phase 8: the host-batch trainer (``-device_pipeline=false``) in
+    all four modes, locally (batches of 32768, launched one by one) and
+    through the parameter server (batches of 131072, neg_block 8, the
+    pipelined loop behind a ``BlockLoader``): every kernel of the path
+    against its plain version at the first batch's ids, a warm-up of 2
+    batches, a counted run (16 batches locally, 4 through the PS),
+    finite tables, and the topic corpus trained on the card and on the
+    CPU with the same draws. Returns (kernel results, launch counts per
+    path ``hb_local_<mode>``/``hb_ps_<mode>``)."""
+    from multiverso_tpu_torch.models.wordembedding import (
+        BlockLoader, PSWord2Vec, Word2Vec, Word2VecConfig)
+    results, counts = [], {}
+    for mode, flags, kernel, source in HB_MODES:
+        for ps in (False, True):
+            size, nb, n = HB_PS if ps else HB_LOCAL
+            size //= scale_down
+            path = f"hb_{'ps' if ps else 'local'}_{mode}"
+            t0 = time.perf_counter()
+            batches = hb_batches(dictionary, tokenized, size, WINDOW,
+                                 bool(flags.get("cbow")), n + 2)
+            t1 = time.perf_counter()
+            config = Word2VecConfig(**{**dict(
+                embedding_size=dim, window=WINDOW, negative=NEG, epochs=3,
+                min_count=1, sample=1e-3, batch_size=size,
+                neg_block=nb, use_ps=ps), **flags})
+            if ps:
+                mv.init([], device=None if device.type == "cuda" else "cpu")
+            try:
+                model = PSWord2Vec(config, dictionary) if ps \
+                    else Word2Vec(config, dictionary, device=device)
+                log(f"[{path}] {len(batches)} batches of {size} in "
+                    f"{t1 - t0:.1f}s, model {time.perf_counter() - t1:.1f}s")
+                replaces = _MODEL_REF + ("755" if ps else "395")
+                if device.type == "cuda":
+                    results += check_hb_kernels(torch, model, batches[0],
+                                                path, kernel, source,
+                                                replaces, card, ps)
+                else:   # the rehearsal: the case's shapes and bytes
+                    hb_kernel_case(torch, model, batches[0], random_tables(
+                        torch, device, model_shapes(model)), ps)
+                model.train_batches(iter(batches[:2]))     # warm-up
+                counted = batches[2:]
+                need = (("row_gather",) if ps else ()) + (
+                    kernel, "row_scatter_add")
+                run = (lambda: model.train_batches(BlockLoader(
+                    model.prepared(iter(counted))))) if ps else \
+                    (lambda: model.train_batches(iter(counted)))
+                counts[path] = drive_counted(
+                    torch, model, path, need, card, workdir, profile_dir,
+                    run, len(counted), "batch")
+                check_tables(np, model, path)
+            finally:
+                if ps:
+                    mv.shutdown()
+            del model, batches
+            free(torch, device)
+    for mode, flags, *_ in HB_MODES:
+        for ps in (False, True):
+            compare_small(np, f"hb_{'ps' if ps else 'local'}_{mode}, 8 "
+                          f"batches", small_hb_run(torch, mv, device,
+                                                   workdir, flags, ps),
+                          small_hb_run(torch, mv, torch.device("cpu"),
+                                       workdir, flags, ps))
     return results, counts
 
 
@@ -887,6 +1370,7 @@ def main(argv=None) -> int:
         # collection of this heap takes tens of ms).
         gc.collect()
         gc.freeze()
+        reuse_huffman_trees()
         results = [] if rehearsal else check_kernels(torch, trainer, card)
         counts, run, monitors = drive_main_path(torch, trainer, BLOCKS)
         report_run("main path", card, centers, run)
@@ -906,25 +1390,27 @@ def main(argv=None) -> int:
             missing = [n for n in PS_KERNELS if counts[n] <= 0]
             if missing:
                 raise AssertionError(f"main path never launched {missing}")
-            ref = small_run(torch, mv, torch.device("cpu"), workdir)
-            got = small_run(torch, mv, device, workdir)
-            for name, g, r in zip(("losses", "in rows", "out rows"), got,
-                                  ref):
-                np.testing.assert_allclose(g, r, rtol=1e-4, atol=1e-6,
-                                           err_msg=name)
-            log(f"[small input] card vs CPU plain path: 6 block losses and "
-                f"both tables agree (rtol 1e-4, atol 1e-6); max loss diff "
-                f"{float(np.abs(got[0] - ref[0]).max()):g}")
-        # Phase 6, the local pipeline: the PS tables go first.
+            compare_small(np, "ps, 6 block losses",
+                          small_run(torch, mv, device, workdir),
+                          small_run(torch, mv, torch.device("cpu"),
+                                    workdir))
+        # Phases 6-8 (the local pipeline, the PS pipeline's other
+        # configurations, the host-batch trainer): the PS tables go
+        # first; each phase frees its models before the next.
         del model, trainer
-        gc.collect()
-        if not rehearsal:
-            torch.cuda.empty_cache()
-        local_results, local_counts = run_local_phase(
-            torch, np, device, dictionary, tokenized, card, workdir,
-            args.profile, dim, 64 if rehearsal else 1)
-        results += local_results
-        counts = {"ps": counts, **local_counts}
+        free(torch, device)
+        counts = {"ps": counts}
+        common = (device, dictionary, tokenized, card, workdir,
+                  args.profile, dim, 64 if rehearsal else 1)
+        phases = (lambda: run_local_phase(torch, np, *common),
+                  lambda: run_ps_modes_phase(torch, np, mv, *common),
+                  lambda: run_hostbatch_phase(torch, np, mv, *common))
+        for number, phase in enumerate(phases, 6):
+            t0 = time.perf_counter()
+            phase_results, phase_counts = phase()
+            results += phase_results
+            counts.update(phase_counts)
+            log(f"[phase {number}] {time.perf_counter() - t0:.1f}s")
     log(f"[done] {time.perf_counter() - started:.1f}s")
     if rehearsal:
         return 3

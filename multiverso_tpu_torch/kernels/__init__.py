@@ -14,6 +14,10 @@ banded_hs_sg_grad  ``hs.py``                 ``_hs_sg_loss_and_grads`` (B8)
 hs_cbow_grad       ``hs.py``                 ``_hs_cbow_loss_and_grads``
                                              (B8)
 pair_offset_grad   ``pair.py``               ``_seq_pair_step`` (B7)
+pairlist_ns_grad   ``pairlist.py``           ``_compact_loss`` NS via
+                                             ``_make_step_core`` (B9)
+pairlist_hs_grad   ``pairlist.py``           ``_compact_loss`` HS via
+                                             ``_make_step_core`` (B9)
 =================  ========================  ============================
 
 A wrapper given a CUDA tensor launches its kernel (built at first use
@@ -28,6 +32,7 @@ from typing import Dict
 from .cbow import banded_cbow_grad
 from .hs import banded_hs_sg_grad, hs_cbow_grad
 from .pair import pair_offset_grad
+from .pairlist import pairlist_hs_grad, pairlist_ns_grad
 from .rows import row_gather, row_scatter_add
 from .sgns import banded_sgns_grad
 from .subsample import subsample_compact
@@ -41,6 +46,8 @@ WRAPPERS = {
     "banded_hs_sg_grad": banded_hs_sg_grad,
     "hs_cbow_grad": hs_cbow_grad,
     "pair_offset_grad": pair_offset_grad,
+    "pairlist_ns_grad": pairlist_ns_grad,
+    "pairlist_hs_grad": pairlist_hs_grad,
 }
 
 

@@ -58,6 +58,10 @@ SIGNATURES = {
                         _P, _P, _P, _P, _P, _P, _P, _P],
     "mv_pair_offset_grad": [_P, _P, _P, _I, _I, _I, _F, _P, _P, _P, _P,
                             _P, _P, _P],
+    "mv_pairlist_ns_grad": [_P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I,
+                            _F, _I, _P, _P, _P, _P, _P, _P, _P],
+    "mv_pairlist_hs_grad": [_P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _F,
+                            _I, _P, _P, _P, _P, _P, _P, _P],
 }
 
 

@@ -20,14 +20,13 @@ Two trainers:
   gradients on one hand-written kernel (K4 SGNS, K5 CBOW, K6/K7 HS, K8
   per pair) and scatter-adds ``-lr * grad`` back into the live tables
   (K3).
-- ``PSDeviceCorpusTrainer`` drives a ``PSWord2Vec``: per block it pulls
-  the rows with device keys through the worker and server actors (K2),
-  runs the banded SGNS step on the pulled rows (K4) and pushes
-  ``-lr * grad / num_workers`` back (K3). Skip-gram with negative
-  sampling only, one block per dispatch (``blocks_per_dispatch=1``),
-  broadcast keys (``segment_keys=False``); CBOW, HS and per-pair (B10),
-  grouped dispatch (B10 G>1) and segmented keys (B11) raise
-  ``NotImplementedError``.
+- ``PSDeviceCorpusTrainer`` drives a ``PSWord2Vec`` through the same
+  mode matrix: per dispatch of G blocks it pulls the rows with device
+  keys through the worker and server actors (K2), runs the step kernel
+  of the mode on the pulled rows (K4-K8; the per-pair mode's 2W
+  sub-steps train local copies) and pushes ``-lr * grad / num_workers``
+  back (K3). Broadcast keys only: segmented keys (``segment_keys=True``,
+  B11) raise ``NotImplementedError``.
 
 The BANDED formulation is the reference's: the contexts of C
 consecutive centers all lie in ``kept[base-W : base+C+W]``, so a step
@@ -40,8 +39,8 @@ uniforms, the shrunk windows and the negative draws come from a draw
 provider (``TorchDraws`` by default: one ``torch.Generator`` on the
 device, seeded per epoch), so the tests can replay the reference's
 ``jax.random`` draws and compare ids bit for bit. The ids work
-(``_band_former``, ``_draw_negs``, the Huffman path lookups) is plain
-torch.
+(``_band_former``, ``model.draw_negs``, the Huffman path lookups) is
+plain torch.
 """
 
 from __future__ import annotations
@@ -63,6 +62,7 @@ from ...kernels.subsample import subsample_compact
 from ...runtime import device_lock
 from ...util.dashboard import monitor
 from .data import TokenizedCorpus
+from .model import draw_negs
 
 
 class TorchDraws:
@@ -100,12 +100,12 @@ class TorchDraws:
         u = torch.rand(neg_shape, generator=g, device=dev)
         return shrink, idx.to(self.device), u.to(self.device)
 
-    def block_draws(self, seed: int, block: int, C: int, W: int, nb: int,
-                    K: int, V: int):
-        """(shrink int32[C] in [1, W], negative candidates int32[nb, K]
-        in [0, V), their alias uniforms float32[nb, K]) for one PS
-        block."""
-        return self.step_draws(seed, block, C, W, (nb, K), V)
+    def group_draws(self, seed: int, block: int, G: int, C: int, W: int,
+                    neg_shape: Optional[Tuple[int, ...]], V: int):
+        """The draws of the G blocks of one PS dispatch starting at
+        ``block``: a list of G ``step_draws`` tuples."""
+        return [self.step_draws(seed, block + i, C, W, neg_shape, V)
+                for i in range(G)]
 
 
 def _pad_stream(C: int, W: int, kept: torch.Tensor, ksent: torch.Tensor):
@@ -153,24 +153,50 @@ def _band_former(C: int, W: int, n_kept: int, kept_pad: torch.Tensor,
     return centers, band, pmask.to(torch.float32)
 
 
-def _draw_negs(neg_prob: torch.Tensor, neg_alias: torch.Tensor,
-               idx: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
-    """Alias-table negatives: candidate ``idx`` kept with probability
-    ``neg_prob[idx]``, else its alias. Returns int32 like ``idx``."""
-    lookup = idx.to(torch.int64)
-    keep_draw = u < neg_prob[lookup]
-    return torch.where(keep_draw, idx, neg_alias[lookup])
-
-
-def _block_ids(C: int, W: int, kept_pad, ksent_pad, neg_prob, neg_alias,
-               draws, base: int, n_kept: int):
-    """One PS block's ids (port of ``_block_ids_fn`` skip-gram branch):
-    in = centers [C], out = [band (C+2W) | negs (C//B*K)], pmask."""
+def _block_ids(config, tables, C: int, B: int, per_pair: bool, draws,
+               kept_pad, ksent_pad, n_kept: int, base: int, lr, inv_w):
+    """One PS block (port of ``_block_ids_fn``/``_block_ids_fn_hs`` and
+    ``_block_step_fn``/``_block_step_fn_hs``): (in_ids, out_ids, step)
+    with ``step(v, u)`` -> (push deltas ``-lr * grad * inv_w`` for the
+    pulled rows ``v = in[in_ids]``, ``u = out[out_ids]``, loss,
+    examples). The ids and the kernel are those of the local step
+    (``_plan``); the per-pair mode pulls [band | every sub-step's
+    negatives] once and steps on local copies (``_pair_block_step``)."""
+    if not per_pair:
+        # The scale in float32 as the reference forms it (lr *
+        # inv_workers, negated).
+        subs, _ = _plan(config, tables, C, B, False, draws, kept_pad,
+                        ksent_pad, n_kept, base, float(-(lr * inv_w)))
+        in_ids, out_ids, kernel, args = subs[0]
+        return in_ids, out_ids, lambda v, u: kernel(v, u, *args)
     shrink, idx, u = draws
-    centers, band, pmask = _band_former(C, W, n_kept, kept_pad, ksent_pad,
-                                        shrink, base)
-    negs = _draw_negs(neg_prob, neg_alias, idx, u)
-    return centers, torch.cat([band, negs.reshape(-1)]), pmask
+    centers, band, pmask = _band_former(C, config.window, n_kept, kept_pad,
+                                        ksent_pad, shrink, base)
+    negs = draw_negs(tables[0], tables[1], idx, u)
+    return centers, torch.cat([band, negs.reshape(-1)]), functools.partial(
+        _pair_block_step, config, C, pmask, lr, inv_w)
+
+
+def _pair_block_step(config, C: int, pmask, lr, inv_w, v, u):
+    """The per-pair mode's PS step: its 2W sub-steps (K8) with the RAW
+    lr against LOCAL copies of the pulled rows, each slice add in place;
+    the push is the net change times ``inv_w`` (ref: _block_step_fn
+    per_pair, communicator.cpp:157-249)."""
+    W, K = config.window, config.negative
+    scale = float(-lr)
+    v_cur, u_cur = v.clone(), u.clone()
+    u_negs = u_cur[C + 2 * W:].view(2 * W, C * K, v.shape[1])
+    pm_cols = pmask.T.contiguous()
+    loss = None
+    for j, off in enumerate(offsets(W)):
+        u_pos = u_cur[W + off:W + off + C]
+        d_v, d_u, sub_loss, _ = pair_offset_grad(
+            v_cur, torch.cat([u_pos, u_negs[j]]), pm_cols[j], K, scale)
+        v_cur += d_v
+        u_pos += d_u[:C]
+        u_negs[j] += d_u[C:]
+        loss = sub_loss if loss is None else loss + sub_loss
+    return (v_cur - v) * inv_w, (u_cur - u) * inv_w, loss, pmask.sum()
 
 
 class _CorpusOnDevice:
@@ -196,7 +222,54 @@ class _CorpusOnDevice:
         return subsample_compact(self.flat, self.sent, self.keep, u)
 
 
-class PSDeviceCorpusTrainer:
+class _ModeTrainer:
+    """What both trainers share: the corpus on the card, the mode's
+    fields — the output structures ``_tables`` ((points, codes) for
+    hierarchical softmax, else the alias tables), the centers a step
+    (HS capped by ``_hs_center_cap``), ``neg_block``, the per-pair flag
+    — and the draw provider."""
+
+    def _init_mode(self, model, tokenized: TokenizedCorpus,
+                   centers_per_step: int, tables, draws) -> None:
+        config = model.config
+        self.model = model
+        self.config = config
+        self._C = int(centers_per_step)
+        self._corpus = _CorpusOnDevice(model, tokenized, self.device)
+        self._n_tokens = self._corpus.n_tokens
+        self._tables = tables
+        self._B, self._per_pair, self._vocab = 1, False, 0
+        if config.hs:
+            # Banded HS rows are [C+2W, L, D] (L = max Huffman path):
+            # cap C so the gathered path rows and their gradient stay
+            # within ~1.5 GB; a larger centers_per_step is cut to the cap.
+            path_len = max(int(tables[0].shape[1]), 1)
+            self._C = min(self._C, _hs_center_cap(
+                path_len, int(config.embedding_size)))
+        else:
+            self._B = max(int(getattr(config, "neg_block", 1)), 1)
+            if self._C % self._B:
+                raise ValueError("neg_block must divide centers_per_step")
+            self._per_pair = bool(getattr(config, "per_pair", False))
+            if self._per_pair and config.cbow:
+                raise ValueError("per_pair is a skip-gram quality mode")
+            self._vocab = int(tables[0].shape[0])
+        self._draws = draws if draws is not None \
+            else TorchDraws(self.device)
+        # Post-subsampling tokens actually trained (centers), across
+        # epochs — the exact basis for utilization accounting.
+        self.kept_words_trained = 0
+
+    def _neg_shape(self):
+        C, W, K = self._C, self.config.window, self.config.negative
+        if self.config.hs:
+            return None
+        if self._per_pair:
+            return (2 * W, C, K)
+        return (C // self._B, K)
+
+
+class PSDeviceCorpusTrainer(_ModeTrainer):
     """Drives a ``PSWord2Vec`` from a device-resident corpus: every block
     pulls its rows through the full worker/server actor stack (device-key
     Gets), trains, and pushes ``-lr*grad/num_workers`` deltas back
@@ -209,54 +282,43 @@ class PSDeviceCorpusTrainer:
                  centers_per_step: int = 32768,
                  blocks_per_dispatch: int = 1,
                  segment_keys: bool = False, draws=None):
+        """``blocks_per_dispatch`` (G) takes G blocks' ids in ONE pull,
+        step and push round trip: the G blocks read the same table state
+        before their deltas land (the reference's bounded-staleness
+        trade); G=1 keeps exact per-block semantics. A draw provider has
+        ``epoch_uniforms(seed, T)`` and ``group_draws(seed, block, G, C,
+        W, neg_shape, V)``; ``TorchDraws`` by default."""
         config = model.config
         if not getattr(model, "_device_path", False):
             raise ValueError("PS device pipeline needs in-process "
                              "servers (device path)")
-        if int(blocks_per_dispatch) != 1:
-            raise NotImplementedError("grouped PS dispatch (G > 1) is not "
-                                      "ported yet (ROADMAP B10)")
         if segment_keys:
             raise NotImplementedError("segmented device keys are not "
                                       "ported yet (ROADMAP B11)")
-        if config.hs:
-            raise NotImplementedError("hierarchical softmax is not ported "
-                                      "yet (ROADMAP B8)")
-        if config.cbow:
-            raise NotImplementedError("CBOW is not ported yet (ROADMAP B6)")
-        if getattr(config, "per_pair", False):
-            raise NotImplementedError("the per-pair quality mode is not "
-                                      "ported yet (ROADMAP B7)")
-        self.model = model
-        self.config = config
-        self._C = int(centers_per_step)
-        self._B = max(int(getattr(config, "neg_block", 1)), 1)
-        if self._C % self._B:
-            raise ValueError("neg_block must divide centers_per_step")
+        self._G = max(int(blocks_per_dispatch), 1)
         self.device = model._in_table.zoo.device
-        self._corpus = _CorpusOnDevice(model, tokenized, self.device)
-        self._n_tokens = self._corpus.n_tokens
-        self._neg_prob = torch.from_numpy(model._neg_prob_host).to(
-            self.device)
-        self._neg_alias = torch.from_numpy(model._neg_alias_host).to(
-            self.device)
-        self._draws = draws if draws is not None \
-            else TorchDraws(self.device)
-        self.kept_words_trained = 0
+        # PSWord2Vec keeps its output structures host-side (its batch
+        # path prepares row sets on the host); upload them once.
+        host = (model._points_host, model._codes_host) if config.hs \
+            else (model._neg_prob_host, model._neg_alias_host)
+        self._init_mode(model, tokenized, centers_per_step,
+                        tuple(torch.from_numpy(a).to(self.device)
+                              for a in host), draws)
         self.last_loss: Optional[torch.Tensor] = None
 
     def train_epoch(self, seed: int, block_hook=None,
                     max_steps: int = 0) -> Tuple[float, float]:
-        """One epoch: per block, ids on the card -> device-key pulls ->
-        the SGNS step -> device-key delta pushes, all launched without a
-        host sync (losses accumulate as device scalars; pushes are
-        fire-and-forget until the trailing drain). Returns (loss_sum,
-        pairs) — fetched ONCE at epoch end. ``block_hook(words)`` is
-        called after each block with the raw-word count it covered;
-        ``max_steps`` truncates the epoch."""
-        model, C, B = self.model, self._C, self._B
-        W, K = self.config.window, self.config.negative
-        nb = C // B
+        """One epoch: per group of G blocks, ids on the card ->
+        device-key pulls -> the mode's step on each block -> device-key
+        delta pushes, all launched without a host sync (losses
+        accumulate as device scalars; pushes are fire-and-forget until
+        the trailing drain). Returns (loss_sum, examples) — fetched ONCE
+        at epoch end. ``block_hook(words)`` is called after each group
+        with the raw-word count it covered; ``max_steps`` truncates the
+        epoch (in blocks)."""
+        model, config = self.model, self.config
+        C, G, B = self._C, self._G, self._B
+        W = config.window
         in_table, out_table = model._in_table, model._out_table
         with monitor("PS_EPOCH_PREP"):
             u = self._draws.epoch_uniforms(seed, self._n_tokens)
@@ -274,52 +336,118 @@ class PSDeviceCorpusTrainer:
         # words count): spread the epoch's raw words over its blocks.
         raw_per_step = self._n_tokens / max(math.ceil(n_kept / C), 1)
         inv_w = np.float32(1.0 / model._num_workers)
-        vocab = int(self._neg_prob.shape[0])
         loss_acc = None
         pair_acc = None
-        for g0 in range(steps):
-            lr = np.float32(model.learning_rate())
-            model._account_words(raw_per_step)
+        for g0 in range(0, steps, G):
+            # The reference's padded tail blocks (lr 0, no valid center)
+            # are no-ops and are not run.
+            real = min(G, steps - g0)
+            lrs = []
+            for _ in range(real):
+                lrs.append(np.float32(model.learning_rate()))
+                model._account_words(raw_per_step)
             with monitor("PS_BLOCK_IDS"):
-                draws = self._draws.block_draws(seed, g0, C, W, nb, K,
-                                                vocab)
-                in_ids, out_ids, pmask = _block_ids(
-                    C, W, kept_pad, ksent_pad, self._neg_prob,
-                    self._neg_alias, draws, g0 * C, n_kept)
+                draws = self._draws.group_draws(seed, g0, G, C, W,
+                                                self._neg_shape(),
+                                                self._vocab)
+                blocks = [_block_ids(config, self._tables, C, B,
+                                     self._per_pair, draws[i], kept_pad,
+                                     ksent_pad, n_kept, (g0 + i) * C,
+                                     lrs[i], inv_w) for i in range(real)]
+                in_ids = _cat([b[0] for b in blocks])
+                out_ids = _cat([b[1] for b in blocks])
             with monitor("PS_GET_STALL"):
-                # Device-key pulls ride the worker->server actor round
-                # trip; the replies are tensors on the card (no host
-                # sync).
+                # One pull a table for the whole group: the device-key
+                # round trip through the worker and server actors; the
+                # replies are tensors on the card (no host sync).
                 mid_in = in_table.get_rows_device_async(in_ids)
                 mid_out = out_table.get_rows_device_async(out_ids)
                 in_table.wait(mid_in)
                 out_table.wait(mid_out)
-            v = in_table.take_device_rows()
-            u_rows = out_table.take_device_rows()
+            v_all = in_table.take_device_rows()
+            u_all = out_table.take_device_rows()
             with monitor("PS_STEP"):
-                # -lr * grad / num_workers, the scale in float32 as the
-                # reference forms it (lr * inv_workers, negated).
-                scale = float(-(lr * inv_w))
-                d_v, d_u, loss, pairs = banded_sgns_grad(
-                    v, u_rows, pmask, W, K, B, scale)
+                # Each block steps on its slice of the shared pulled
+                # state; losses and examples sum.
+                d_v, d_u, loss, pairs = [], [], None, None
+                n_in, n_out = blocks[0][0].numel(), blocks[0][1].numel()
+                for i, (_, _, step) in enumerate(blocks):
+                    dv, du, blk_loss, blk_pairs = step(
+                        v_all[i * n_in:(i + 1) * n_in],
+                        u_all[i * n_out:(i + 1) * n_out])
+                    d_v.append(dv)
+                    d_u.append(du)
+                    loss = blk_loss if loss is None else loss + blk_loss
+                    pairs = blk_pairs if pairs is None \
+                        else pairs + blk_pairs
             with monitor("PS_PUSH"):
                 # Fire-and-forget pushes; the trailing drain bounds the
                 # epoch.
                 model._pending_pushes.append(
-                    (in_table, in_table.add_rows_async(in_ids, d_v)))
+                    (in_table, in_table.add_rows_async(in_ids, _cat(d_v))))
                 model._pending_pushes.append(
-                    (out_table, out_table.add_rows_async(out_ids, d_u)))
+                    (out_table, out_table.add_rows_async(out_ids,
+                                                         _cat(d_u))))
             loss_acc = loss if loss_acc is None else loss_acc + loss
             pair_acc = pairs if pair_acc is None else pair_acc + pairs
             self.last_loss = loss  # device scalar; timing sync point
             if block_hook is not None:
-                block_hook(raw_per_step)
+                block_hook(raw_per_step * real)
         with monitor("PS_EPOCH_DRAIN"):
             model._drain_pushes()
             model._flush_word_count()
             in_table.zoo.barrier()
         return (0.0 if loss_acc is None else float(loss_acc),
                 0.0 if pair_acc is None else float(pair_acc))
+
+
+def _cat(parts):
+    """One tensor from a group's per-block parts (no copy for one)."""
+    return parts[0] if len(parts) == 1 else torch.cat(parts)
+
+
+def _plan(config, tables, C: int, B: int, per_pair: bool, draws,
+          kept_pad, ksent_pad, n_kept: int, base: int, scale: float):
+    """The step kernels' work for the C centers from ``base``: (sub-
+    steps, pmask). A sub-step is ``(in_ids, out_ids, kernel, args)``, run
+    as ``kernel(emb_in[in_ids], emb_out[out_ids], *args)``; one sub-step
+    a step, except the per-pair mode's 2W (ref: _apply_step,
+    _seq_pair_step, _group_fn_hs). ``tables``: (points, codes) for
+    hierarchical softmax, else (neg_prob, neg_alias), on the card."""
+    W, K = config.window, config.negative
+    shrink, idx, u = draws
+    centers, band, pmask = _band_former(C, W, n_kept, kept_pad, ksent_pad,
+                                        shrink, base)
+    if config.hs:
+        # B8: the center row against the Huffman paths of the band's
+        # words, gathered once per band position (K6), or the window
+        # mean against the center's own path (K7).
+        points, codes = tables
+        ids = (centers if config.cbow else band).to(torch.int64)
+        path, code = points[ids], codes[ids]
+        out_ids = torch.clamp(path, min=0).reshape(-1)
+        if config.cbow:
+            return [(band, out_ids, hs_cbow_grad,
+                     (path, code, pmask, W, scale))], pmask
+        return [(centers, out_ids, banded_hs_sg_grad,
+                 (path, code, pmask, W, scale))], pmask
+    negs = draw_negs(tables[0], tables[1], idx, u)
+    if per_pair:
+        # B7: 2W sequential sub-steps in offset order, each with its own
+        # K negatives a pair (K8).
+        pm_cols = pmask.T.contiguous()
+        return [(centers, torch.cat([band[W + off:W + off + C],
+                                     negs[j].reshape(-1)]),
+                 pair_offset_grad, (pm_cols[j], K, scale))
+                for j, off in enumerate(offsets(W))], pmask
+    if config.cbow:
+        # B6: the window (input table) predicts [center | negatives]
+        # (output table) (K5).
+        return [(band, torch.cat([centers, negs.reshape(-1)]),
+                 banded_cbow_grad, (pmask, W, K, B, scale))], pmask
+    # B5: banded skip-gram with negative sampling (K4).
+    return [(centers, torch.cat([band, negs.reshape(-1)]),
+             banded_sgns_grad, (pmask, W, K, B, scale))], pmask
 
 
 def _hs_center_cap(path_len: int, dim: int) -> int:
@@ -329,7 +457,7 @@ def _hs_center_cap(path_len: int, dim: int) -> int:
     return max((3 << 29) // (3 * max(path_len, 1) * dim * 4), 64)
 
 
-class DeviceCorpusTrainer:
+class DeviceCorpusTrainer(_ModeTrainer):
     """Drives a local ``Word2Vec`` model's tables straight from a
     device-resident ``TokenizedCorpus``. Covers the FULL mode matrix:
     {skip-gram, CBOW} x {negative sampling, hierarchical softmax}
@@ -339,89 +467,21 @@ class DeviceCorpusTrainer:
     def __init__(self, model, tokenized: TokenizedCorpus,
                  centers_per_step: int = 32768,
                  steps_per_dispatch: int = 8, draws=None):
-        config = model.config
-        self.model = model
-        self.config = config
-        self._C = int(centers_per_step)
         self._G = int(steps_per_dispatch)
         self.device = model.device
-        self._corpus = _CorpusOnDevice(model, tokenized, self.device)
-        self._n_tokens = self._corpus.n_tokens
-        self._B = 1
-        self._per_pair = False
-        if config.hs:
-            # Banded HS rows are [C+2W, L, D] (L = max Huffman path):
-            # cap C so the gathered path rows and their gradient stay
-            # within ~1.5 GB; a larger centers_per_step is cut to the cap.
-            path_len = max(int(model._points_host.shape[1]), 1)
-            self._C = min(self._C, _hs_center_cap(
-                path_len, int(config.embedding_size)))
-            self._vocab = 0
-        else:
-            self._B = max(int(getattr(config, "neg_block", 1)), 1)
-            if self._C % self._B:
-                raise ValueError("neg_block must divide centers_per_step")
-            self._per_pair = bool(getattr(config, "per_pair", False))
-            if self._per_pair and config.cbow:
-                raise ValueError("per_pair is a skip-gram quality mode")
-            self._vocab = int(model._neg_prob_dev.shape[0])
-        self._draws = draws if draws is not None \
-            else TorchDraws(self.device)
-        # Post-subsampling tokens actually trained (centers), across
-        # epochs — the exact basis for utilization accounting.
-        self.kept_words_trained = 0
-
-    def _neg_shape(self):
-        C, W, K = self._C, self.config.window, self.config.negative
-        if self.config.hs:
-            return None
-        if self._per_pair:
-            return (2 * W, C, K)
-        return (C // self._B, K)
+        tables = (model._points_dev, model._codes_dev) if model.config.hs \
+            else (model._neg_prob_dev, model._neg_alias_dev)
+        self._init_mode(model, tokenized, centers_per_step, tables, draws)
 
     def _plan(self, seed: int, step: int, kept_pad, ksent_pad,
               n_kept: int, scale: float):
-        """Step ``step``'s work: (sub-steps, pmask). A sub-step is
-        ``(in_ids, out_ids, kernel, args)``, run as ``kernel(
-        emb_in[in_ids], emb_out[out_ids], *args)``; one sub-step a step,
-        except the per-pair mode's 2W (ref: _apply_step, _seq_pair_step,
-        _group_fn_hs)."""
-        model, config = self.model, self.config
-        C, W, K, B = self._C, config.window, config.negative, self._B
-        shrink, idx, u = self._draws.step_draws(
-            seed, step, C, W, self._neg_shape(), self._vocab)
-        centers, band, pmask = _band_former(C, W, n_kept, kept_pad,
-                                            ksent_pad, shrink, step * C)
-        if config.hs:
-            # B8: the center row against the Huffman paths of the band's
-            # words, gathered once per band position (K6), or the window
-            # mean against the center's own path (K7).
-            ids = (centers if config.cbow else band).to(torch.int64)
-            path, code = model._points_dev[ids], model._codes_dev[ids]
-            out_ids = torch.clamp(path, min=0).reshape(-1)
-            if config.cbow:
-                return [(band, out_ids, hs_cbow_grad,
-                         (path, code, pmask, W, scale))], pmask
-            return [(centers, out_ids, banded_hs_sg_grad,
-                     (path, code, pmask, W, scale))], pmask
-        negs = _draw_negs(model._neg_prob_dev, model._neg_alias_dev, idx,
-                          u)
-        if self._per_pair:
-            # B7: 2W sequential sub-steps in offset order, each with its
-            # own K negatives a pair (K8).
-            pm_cols = pmask.T.contiguous()
-            return [(centers, torch.cat([band[W + off:W + off + C],
-                                         negs[j].reshape(-1)]),
-                     pair_offset_grad, (pm_cols[j], K, scale))
-                    for j, off in enumerate(offsets(W))], pmask
-        if config.cbow:
-            # B6: the window (input table) predicts [center | negatives]
-            # (output table) (K5).
-            return [(band, torch.cat([centers, negs.reshape(-1)]),
-                     banded_cbow_grad, (pmask, W, K, B, scale))], pmask
-        # B5: banded skip-gram with negative sampling (K4).
-        return [(centers, torch.cat([band, negs.reshape(-1)]),
-                 banded_sgns_grad, (pmask, W, K, B, scale))], pmask
+        """Step ``step``'s work: (sub-steps, pmask), see ``_plan``."""
+        draws = self._draws.step_draws(seed, step, self._C,
+                                       self.config.window,
+                                       self._neg_shape(), self._vocab)
+        return _plan(self.config, self._tables, self._C, self._B,
+                     self._per_pair, draws, kept_pad, ksent_pad, n_kept,
+                     step * self._C, scale)
 
     def _step(self, seed: int, step: int, kept_pad, ksent_pad,
               n_kept: int, scale: float):

@@ -5,12 +5,14 @@ Port of ``multiverso_tpu/models/wordembedding/main.py``
 (ref: Applications/WordEmbedding/src/main.cpp:16-28 and
 distributed_wordembedding.cpp: epoch loop; rank 0 saves the embeddings
 after the last epoch). Flags use the framework's -key=value convention
-with the reference's names and defaults. Both device pipelines run:
-local (``-use_ps=false``, the default; every mode of ``-cbow``/``-hs``/
-``-per_pair``) and through the parameter server (``-use_ps=true``,
-skip-gram with negative sampling). The host-batch loop
-(``-device_pipeline=false``) raises ``NotImplementedError`` (ROADMAP
-B9).
+with the reference's names and defaults. Both device pipelines run
+every mode of ``-cbow``/``-hs``/``-per_pair``, locally (``-use_ps=false``,
+the default) and through the parameter server (``-use_ps=true``). So
+does the host-batch loop (``-device_pipeline=false``: batches of
+``-batch_size`` pairs prepared on the host, behind a loader thread with
+``-is_pipeline``), locally and through the parameter server, in all
+four modes (``-per_pair`` applies to the device pipelines only, as in
+the reference).
 
 Usage::
 
@@ -29,7 +31,7 @@ from ... import init as mv_init, shutdown as mv_shutdown
 from ...util import log
 from ...util.configure import (define_bool, define_double, define_int,
                                define_string, get_flag, parse_cmd_flags)
-from .data import TokenizedCorpus
+from .data import BlockLoader, TokenizedCorpus, iter_pair_batches
 from .device_train import DeviceCorpusTrainer, PSDeviceCorpusTrainer
 from .dictionary import Dictionary
 from .model import PSWord2Vec, Word2Vec, Word2VecConfig
@@ -93,11 +95,6 @@ def run(argv=None, device=None) -> Word2Vec:
     train_file = get_flag("train_file")
     if not train_file:
         raise SystemExit("need -train_file=<corpus>")
-    if not get_flag("device_pipeline"):
-        raise NotImplementedError(
-            "the host-batch loop (-device_pipeline=false) is not ported "
-            "yet (ROADMAP B9)")
-
     stopwords = _read_stopwords(get_flag("stopwords")) \
         if get_flag("stopwords") else None
     if get_flag("vocab_file"):
@@ -115,8 +112,26 @@ def run(argv=None, device=None) -> Word2Vec:
     else:
         model = Word2Vec(config, dictionary, device=device)
     corpus = TokenizedCorpus.build(dictionary, train_file)
-    trainer = (PSDeviceCorpusTrainer(model, corpus) if config.use_ps
-               else DeviceCorpusTrainer(model, corpus))
+    # The device pipelines are the fast path for every mode;
+    # -device_pipeline=false selects the host-batch loop (the form that
+    # also runs cross-process in the reference).
+    if get_flag("device_pipeline"):
+        trainer = (PSDeviceCorpusTrainer(model, corpus) if config.use_ps
+                   else DeviceCorpusTrainer(model, corpus))
+
+        def train_one(epoch):
+            return trainer.train_epoch(seed=config.seed + epoch)
+    else:
+        def train_one(epoch):
+            batches = iter_pair_batches(
+                dictionary, corpus, batch_size=config.batch_size,
+                window=config.window, subsample=config.sample,
+                cbow=config.cbow, seed=config.seed + epoch)
+            # Row preparation runs in the loader thread (prepared()) so
+            # it overlaps with the steps on the card.
+            iterator = BlockLoader(model.prepared(batches)) \
+                if get_flag("is_pipeline") else batches
+            return model.train_batches(iterator)
     # The dictionary (one Python string per word) and the corpus live
     # for the whole run: keep the cyclic GC from re-walking them between
     # steps (a full collection of a ~1M-word heap takes tens of ms).
@@ -124,7 +139,7 @@ def run(argv=None, device=None) -> Word2Vec:
     gc.freeze()
     start = time.perf_counter()
     for epoch in range(config.epochs):
-        loss_sum, pair_count = trainer.train_epoch(seed=config.seed + epoch)
+        loss_sum, pair_count = train_one(epoch)
         elapsed = time.perf_counter() - start
         log.info("epoch %d: avg pair loss %.4f, %.0f words/s", epoch,
                  loss_sum / max(pair_count, 1),

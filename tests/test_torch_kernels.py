@@ -37,7 +37,7 @@ from multiverso_tpu_torch.kernels import (banded_sgns_grad, row_gather,
                                           subsample_compact)
 from multiverso_tpu_torch.kernels.sgns import banded_sgns_grad_plain
 from multiverso_tpu_torch.models.wordembedding import (
-    device_train as tdt)
+    device_train as tdt, model as tmodel)
 from multiverso_tpu_torch.updater import engine as tengine
 from multiverso_tpu_torch.updater import rules as trules
 
@@ -190,8 +190,8 @@ def test_pad_band_draw_match_jax():
                                    jnp.asarray(neg_alias), k_idx, k_keep)
         idx = jax.random.randint(k_idx, (C // B, K), 0, V)
         uu = jax.random.uniform(k_keep, (C // B, K))
-        got_negs = tdt._draw_negs(_t(neg_prob), _t(neg_alias), _t(idx),
-                                  _t(uu))
+        got_negs = tmodel.draw_negs(_t(neg_prob), _t(neg_alias), _t(idx),
+                                     _t(uu))
         assert got_negs.dtype == torch.int32
         np.testing.assert_array_equal(got_negs.numpy(),
                                       np.asarray(want_negs))

@@ -496,8 +496,9 @@ def test_trainer_rejects_bad_modes(tmp_path):
                      device="cpu")
     with pytest.raises(ValueError, match="neg_block"):
         DeviceCorpusTrainer(model, tok, centers_per_step=16)
-    with pytest.raises(NotImplementedError, match="B9"):
-        model.train_batches(iter([]))
+    # The host-batch loop runs (it raised before its port): an empty
+    # stream trains nothing.
+    assert model.train_batches(iter([])) == (0.0, 0)
 
 
 def test_the_card_is_the_default_device(tmp_path):

@@ -31,7 +31,7 @@ from multiverso_tpu.models.wordembedding import (
     Word2VecConfig as JConfig)
 from multiverso_tpu_torch.models.wordembedding import (
     Dictionary, PSDeviceCorpusTrainer, PSWord2Vec, TokenizedCorpus,
-    Word2VecConfig)
+    Word2VecConfig, iter_pair_batches)
 from multiverso_tpu_torch.models.wordembedding.convert import (
     load_reference_tables)
 
@@ -96,13 +96,14 @@ class JaxDraws:
         return torch.from_numpy(np.array(
             jax.random.uniform(prep_key, (n_tokens,))))
 
-    def block_draws(self, seed, block, C, W, nb, K, V):
+    def group_draws(self, seed, block, G, C, W, neg_shape, V):
+        assert G == 1 and neg_shape is not None
         step_key = jax.random.fold_in(self._key, block)
         k_shrink, k_idx, k_keep = jax.random.split(step_key, 3)
         draws = (jax.random.randint(k_shrink, (C,), 1, W + 1),
-                 jax.random.randint(k_idx, (nb, K), 0, V),
-                 jax.random.uniform(k_keep, (nb, K)))
-        return tuple(torch.from_numpy(np.array(x)) for x in draws)
+                 jax.random.randint(k_idx, neg_shape, 0, V),
+                 jax.random.uniform(k_keep, neg_shape))
+        return [tuple(torch.from_numpy(np.array(x)) for x in draws)]
 
 
 def _config(cls, **kw):
@@ -188,6 +189,9 @@ def test_port_trains_with_its_own_draws(tmp_path):
 
 
 def test_unported_modes_raise(tmp_path):
+    # CBOW, HS, per-pair and G > 1 run now (tests/test_torch_ps_modes.py);
+    # segmented keys (B11) and the host-batch arm that needs the
+    # multi-process runtime (A9) still raise.
     path = tmp_path / "corpus.txt"
     write_topic_corpus(path, n_sentences=50)
     d = Dictionary.build(str(path), min_count=1)
@@ -195,13 +199,14 @@ def test_unported_modes_raise(tmp_path):
     tmv.init([], device="cpu")
     try:
         model = PSWord2Vec(Word2VecConfig(embedding_size=8, cbow=True), d)
-        with pytest.raises(NotImplementedError, match="B6"):
-            PSDeviceCorpusTrainer(model, tok, centers_per_step=16)
-        model.config.cbow = False
-        with pytest.raises(NotImplementedError, match="B10"):
+        PSDeviceCorpusTrainer(model, tok, centers_per_step=16,
+                              blocks_per_dispatch=4)
+        with pytest.raises(NotImplementedError, match="B11"):
             PSDeviceCorpusTrainer(model, tok, centers_per_step=16,
-                                  blocks_per_dispatch=4)
-        with pytest.raises(NotImplementedError, match="B9"):
-            model.train_batches(iter([]))
+                                  segment_keys=True)
+        model._device_path = False
+        with pytest.raises(NotImplementedError, match="A9"):
+            model.train_batches(iter([model.prepare(next(
+                iter_pair_batches(d, tok, batch_size=64, window=3)))]))
     finally:
         tmv.shutdown()
