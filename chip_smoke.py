@@ -4,7 +4,7 @@ CUDA card.
 
 Phases, each fatal on failure:
 
-1. build the ten hand-written kernels from ``multiverso_tpu_torch/csrc``
+1. build the twelve hand-written kernels from ``multiverso_tpu_torch/csrc``
    (one ``nvcc`` per source, all started together) and print the build
    time and ``ptxas`` resource usage;
 2. set up the main path at the benchmark's full width: the synthetic
@@ -61,7 +61,27 @@ Phases, each fatal on failure:
    2 warm-up batches, then 16 batches locally or 4 through the PS
    counted and profiled (words/s, the card's busy share; every
    kernel of the path must launch); finite tables; the topic corpus
-   trained on the card and on the CPU with the same draws.
+   trained on the card and on the CPU with the same draws;
+9. the logistic-regression app on a seeded synthetic corpus with the
+   widths of the LIBSVM ``criteo`` set (1,000,000 hashed features, 39
+   nonzeros a sample: 13 numeric fields with log-scaled values and 26
+   Zipf-skewed categorical ones with value 1; labels from a planted
+   weight vector), in batches of 4096: K11 and K12 against their plain
+   versions at the first batch's shapes (K11 within a tolerance, K12 bit
+   for bit on values and diffs rounded to a grid where every sum is
+   exact; also softmax at C=10, L1 and keys repeated within a sample),
+   then four sparse paths — ``lr_sparse_local`` (``LocalModel``,
+   sigmoid, L2, sgd), ``lr_ftrl_local`` (``FTRLModel``),
+   ``lr_sparse_ps`` (``PSModel`` over a sparse matrix table, with K2 and
+   K3 checked where its server runs them) and ``lr_ftrl_ps`` (two array
+   tables) — and ``lr_dense_ps`` (the mnist.config widths, torch only),
+   each 4 warm-up batches and 64 counted (samples/s, every kernel of
+   the path launched, finite losses) and profiled (device ms a batch,
+   busy share); the tests' small sets trained on the card and on the
+   CPU in six model families (losses, correct counts and weights at
+   rtol 1e-4 / atol 1e-6); and the CLI
+   ``python -m multiverso_tpu_torch.models.logreg.main <config>``, train
+   + test on a 50,000-sample libsvm file.
 
 Phases 1-6 are as the second slice left them, the small-input checks
 now also comparing example counts, and K2 and K3 timed over all the
@@ -69,8 +89,8 @@ calls of a step (both tables) instead of the output table's alone. One
 Huffman tree of the bench dictionary serves every HS model of the run.
 
 Prints one JSON ``kernels`` line (one entry a path and kernel: ``ps``,
-``local_<mode>``, ``ps_<mode>``, ``hb_local_<mode>`` or
-``hb_ps_<mode>``, with that path's launches), the card's name and
+``local_<mode>``, ``ps_<mode>``, ``hb_local_<mode>``, ``hb_ps_<mode>``
+or ``lr_<path>``, with that path's launches), the card's name and
 power limit, and
 as its last line ``{"ok": true, "device": {...}}``. Exits non-zero with
 no result when CUDA is not available or the package is missing.
@@ -78,7 +98,7 @@ no result when CUDA is not available or the package is missing.
 Usage: ``python3 chip_smoke.py`` (one card). ``--profile DIR`` adds a
 ``torch.profiler`` trace of 8 more blocks (Chrome trace in DIR, the
 device's busy share and the host monitors) and keeps the Chrome trace
-of every counted path. ``--cpu-rehearsal`` runs phases 2 and 4-8 at a
+of every counted path. ``--cpu-rehearsal`` runs phases 2 and 4-9 at a
 tiny size on the CPU with the plain versions (no kernels, no timing, no
 result line, exit code 3) to check the control flow on a host without a
 card.
@@ -191,11 +211,12 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(torch, fn, reps: int = REPS) -> float:
+def time_ms(torch, fn, reps: int = REPS, only: str = "") -> float:
     """Device time of one ``fn()`` call: the summed duration of every
-    kernel it launches, from a ``torch.profiler`` trace of ``reps``
-    calls after warm-up, divided by ``reps``. (CUDA events around a call
-    of a ~20 us kernel would also time the Python wrapper's launch.)"""
+    kernel it launches (with ``only``: of the kernels whose name holds
+    it), from a ``torch.profiler`` trace of ``reps`` calls after
+    warm-up, divided by ``reps``. (CUDA events around a call of a ~20 us
+    kernel would also time the Python wrapper's launch.)"""
     import torch.profiler as tp
     for _ in range(3):
         fn()
@@ -209,7 +230,9 @@ def time_ms(torch, fn, reps: int = REPS) -> float:
             torch.cuda.synchronize()
         total_us = 0.0
         for evt in prof.key_averages():
-            total_us += float(getattr(evt, "self_device_time_total", 0.0))
+            if only in evt.key:
+                total_us += float(getattr(evt, "self_device_time_total",
+                                          0.0))
         if total_us > 0.0:
             return total_us / reps / 1e3
         log(f"[time] the profiler recorded no device time (trace "
@@ -323,7 +346,10 @@ def check_gather(torch, cases, D: int):
         k = ids.numel()
         n_bytes += k * 4 + int(torch.unique(ids).numel()) * D * 4 \
             + k * D * 4
-    lookups = [(table, ids.to(torch.int64)) for table, ids in cases]
+    # The library call raises on the pad sentinel: clamp it (outside the
+    # timed call; in-range ids are left as they are).
+    lookups = [(table, ids.to(torch.int64).clamp(0, table.shape[0] - 1))
+               for table, ids in cases]
     return dict(
         name="row_gather", tol="bit-exact", max_abs_err=err, ok=err == 0.0,
         source="multiverso_tpu_torch/csrc/row_gather.cu",
@@ -355,11 +381,12 @@ def on_grid(torch, table, ids, delta):
     return torch.round(table * grid) / grid, torch.round(delta * grid) / grid
 
 
-def check_scatter(torch, cases, D: int):
+def check_scatter(torch, cases, D: int, row_bytes: int = 0):
     """K3 on ``cases``, the step's (table, ids, delta) triples, each
     rounded ``on_grid``: bit-exact on every triple, duplicate ids and
     the Zipf head included; timed over all of them, as the step launches
-    them."""
+    them. A table row read or written costs ``row_bytes`` in the bound
+    (default ``D * 4``; 32 for rows narrower than a sector)."""
     from multiverso_tpu_torch.kernels import rows
     err, nonzero, n_bytes = 0.0, [], 0
     for table, ids, delta in cases:
@@ -372,8 +399,9 @@ def check_scatter(torch, cases, D: int):
         del a, base
         k = ids.numel()
         n_bytes += k * 4 + k * D * 4 \
-            + 2 * int(torch.unique(ids).numel()) * D * 4
-    scratch = [(table.clone(), ids, ids.to(torch.int64), delta)
+            + 2 * int(torch.unique(ids).numel()) * (row_bytes or D * 4)
+    scratch = [(table.clone(), ids,
+                ids.reshape(-1)[:delta.shape[0]].to(torch.int64), delta)
                for table, ids, delta in cases]
     result = dict(
         name="row_scatter_add",
@@ -1319,6 +1347,588 @@ def run_hostbatch_phase(torch, np, mv, device, dictionary, tokenized,
     return results, counts
 
 
+# -- phase 9: the logistic-regression app --
+
+# The LIBSVM "criteo" set's widths (LIBSVM data sets, binary class,
+# criteo: 1,000,000 hashed features, 39 nonzeros a sample from 13
+# numeric and 26 categorical fields, binary labels).
+LR_FEATURES, LR_NUMERIC, LR_CATEGORICAL = 1_000_000, 13, 26
+LR_BATCH, LR_WARM, LR_COUNTED = 4096, 4, 64
+LR_CLI_SAMPLES = 50_000
+_LR_REF = "multiverso_tpu/models/logreg/"
+_LR_SRC = _CSRC + "sparse_logreg.cu"
+# (path, config, model family): the reference's defaults otherwise
+# (models/logreg/config.py), FTRL's alpha 0.005, beta 1, lambda1 5,
+# lambda2 0.002 among them.
+_LR_SGD = dict(objective_type="sigmoid", regular_type="L2",
+               regular_coef=0.0005, updater_type="sgd", learning_rate=0.8)
+LR_SPARSE_PATHS = (
+    ("lr_sparse_local", _LR_SGD, "local"),
+    ("lr_ftrl_local", dict(objective_type="sigmoid", updater_type="ftrl"),
+     "ftrl"),
+    ("lr_sparse_ps", dict(_LR_SGD, use_ps=True, pipeline=True,
+                          sync_frequency=1), "ps"),
+    ("lr_ftrl_ps", dict(objective_type="sigmoid", updater_type="ftrl",
+                        use_ps=True, sync_frequency=1), "ftrl"),
+)
+# The reference example's mnist.config widths: 784 inputs, 10 classes,
+# softmax, minibatch 20.
+LR_DENSE = dict(input_size=784, output_size=10, objective_type="softmax",
+                regular_type="L2", updater_type="sgd", use_ps=True,
+                minibatch_size=20, sync_frequency=1)
+
+
+def criteo_like(np, n: int, seed: int):
+    """``n`` samples at criteo's widths: keys [n, 39] int64 (the 13
+    numeric fields on keys 0-12, then the 26 categorical fields, each a
+    Zipf(1.1) draw from its own slice of the hashed space, scattered by
+    a fixed permutation, so a sample's keys are distinct), values [n,
+    39] float32 (numeric: 0.3 log1p of a count >= 1, a scale at which
+    the reference's default learning rate 0.8 is stable; categorical:
+    1) and labels int32 drawn from a planted weight vector and bias
+    (29% positive, near criteo's quarter), so that the loss falls in
+    every model of phase 9."""
+    rng = np.random.default_rng(seed)
+    span = (LR_FEATURES - LR_NUMERIC) // LR_CATEGORICAL
+    cdf = np.cumsum(np.arange(1, span + 1, dtype=np.float64) ** -1.1)
+    cdf /= cdf[-1]
+    perm = rng.permutation(LR_FEATURES - LR_NUMERIC) + LR_NUMERIC
+    ranks = np.searchsorted(cdf, rng.random((n, LR_CATEGORICAL)))
+    cat = perm[np.minimum(ranks, span - 1)
+               + np.arange(LR_CATEGORICAL) * span]
+    keys = np.concatenate([np.broadcast_to(np.arange(LR_NUMERIC),
+                                           (n, LR_NUMERIC)), cat], axis=1)
+    values = np.concatenate([
+        0.3 * np.log1p(rng.geometric(0.05, (n, LR_NUMERIC))),
+        np.ones((n, LR_CATEGORICAL))], axis=1).astype(np.float32)
+    planted = rng.standard_normal(LR_FEATURES) * 0.5
+    planted[:LR_NUMERIC] *= 0.2
+    score = (values * planted[keys]).sum(axis=1) - 1.5
+    labels = (rng.random(n) < 1.0 / (1.0 + np.exp(-score))).astype(np.int32)
+    return keys.astype(np.int64), values, labels
+
+
+def lr_batches(np, keys, values, labels, batch: int):
+    """Full batches as the reader packs them (``reader._pack``): keys
+    padded to ``bucket_size(39)`` with the padding key ``input_size``,
+    values 0 there, every weight 1."""
+    from multiverso_tpu_torch.models.logreg import Batch
+    from multiverso_tpu_torch.updater.engine import bucket_size
+    width = bucket_size(keys.shape[1])
+    out = []
+    for lo in range(0, keys.shape[0] - batch + 1, batch):
+        k = np.full((batch, width), LR_FEATURES, np.int64)
+        v = np.zeros((batch, width), np.float32)
+        k[:, :keys.shape[1]] = keys[lo:lo + batch]
+        v[:, :keys.shape[1]] = values[lo:lo + batch]
+        out.append(Batch(labels[lo:lo + batch].copy(),
+                         np.ones(batch, np.float32), keys=k, values=v,
+                         count=batch))
+    return out
+
+
+def lr_config(extra: dict, input_size: int = LR_FEATURES,
+              batch: int = LR_BATCH):
+    from multiverso_tpu_torch.models.logreg import Configure
+    return Configure(**dict(dict(input_size=input_size, output_size=1,
+                                 sparse=True, minibatch_size=batch),
+                            **extra))
+
+
+def lr_grid(torch, values, diff, keys, rows: int, count: float):
+    """``values`` and ``diff`` rounded to grids on which every partial sum
+    K12 forms — ``values * diff / count`` summed per touched row — is
+    exact in float32 (``count`` a power of two): values to 2^-2, diff to
+    the finest 2^-q that keeps each row's mass below 2^(24 - 2 - q) times
+    its quantum, with 3 bits of margin. K12 and its plain version then
+    agree bit for bit whatever order they sum in."""
+    from multiverso_tpu_torch.kernels import logreg as lrk
+    vg = torch.round(values * 4) / 4
+    t = lrk.touched_rows(keys, rows)
+    pos = t.occ.to(torch.int64)
+    seg = torch.repeat_interleave(torch.arange(t.rows.numel(),
+                                               device=keys.device),
+                                  t.counts)
+    mass = torch.zeros(t.rows.numel(), dtype=torch.float64,
+                       device=keys.device)
+    mass.index_add_(0, seg, (vg.reshape(-1)[pos].abs().double()
+                             * diff.abs().amax(1).double()[
+                                 pos // values.shape[1]]) / count)
+    top = max(float(mass.max()), 2.0 ** -60)
+    lq = math.log2(count)
+    q = int(math.floor(24 - 2 - lq - 3 - math.log2(top) - 1))
+    q = max(min(q, 20), 0)
+    return vg, torch.round(diff * 2.0 ** q) / 2.0 ** q
+
+
+def lr_tables(torch, R: int, C: int, ftrl, gen, device):
+    """Random state of the main path's height: ``w`` or FTRL's ``(z, n)``
+    (|z| beyond lambda1 often enough that weights are nonzero)."""
+    if ftrl is None:
+        return torch.randn(R, C, generator=gen, device=device) * 0.1
+    z = torch.randn(R, C, generator=gen, device=device) * 2 * max(
+        ftrl.lambda1, 1.0)
+    n = torch.rand(R, C, generator=gen, device=device) * 4
+    return z, n
+
+
+def _clone_table(table):
+    return table.clone() if not isinstance(table, tuple) \
+        else tuple(t.clone() for t in table)
+
+
+def lr_case(torch, np, tag: str, config, batch, gen, device, ps: bool,
+            dup: bool = False, time_it: bool = True):
+    """K11 and K12 against their plain versions at ``batch``'s shapes on
+    random state of ``config``'s model (``ps``: K12 also returns the
+    push — the delta rows, or FTRL's dense push buffers): K11 within
+    |err| <= 1e-5 + 1e-4 |plain| (pred, diff), loss sum rel err <= 1e-5
+    and equal hit counts; K12 bit-exact on values and diffs rounded by
+    ``lr_grid``. ``dup`` repeats keys within samples (a quarter of the
+    samples name their first categorical key twice more). Returns the
+    two kernels' result entries (timed when ``time_it``)."""
+    from multiverso_tpu_torch.kernels import logreg as lrk
+    from multiverso_tpu_torch.models.logreg import objective
+    R, C = config.input_size + 1, max(config.output_size, 1)
+    ftrl = objective.ftrl_params(config) \
+        if config.updater_type == "ftrl" else None
+    act = objective._act_code(config.objective_type)
+    reg = objective._reg_code(config.regular_type)
+    keys_np = batch.keys.astype(np.int32)
+    if dup:
+        keys_np[::4, LR_NUMERIC + 1] = keys_np[::4, LR_NUMERIC]
+        keys_np[::4, LR_NUMERIC + 2] = keys_np[::4, LR_NUMERIC]
+    keys = torch.from_numpy(keys_np).to(device)
+    values = torch.from_numpy(batch.values).to(device)
+    labels = torch.from_numpy(batch.labels).to(device)
+    if C > 1:
+        labels = torch.randint(0, C, labels.shape, generator=gen,
+                               device=device, dtype=torch.int32)
+    weights = torch.from_numpy(batch.weights).to(device)
+    table = lr_tables(torch, R, C, ftrl, gen, device)
+    B, K = keys.shape
+
+    got = lrk.sparse_lr_forward(table, keys, values, labels, weights, act,
+                                ftrl)
+    ref = lrk.sparse_lr_forward_plain(table, keys, values, labels, weights,
+                                      act, ftrl)
+    err, ok = 0.0, True
+    for g, r in zip(got[:2], ref[:2]):
+        d = (g - r).abs()
+        err = max(err, float(d.max()))
+        ok = ok and bool((d <= 1e-5 + 1e-4 * r.abs()).all())
+    loss_rel = abs(float(got[2].sum()) - float(ref[2].sum())) / max(
+        abs(float(ref[2].sum())), 1e-30)
+    hits = (int(got[3].sum()), int(ref[3].sum()))
+    ok = ok and loss_rel <= 1e-5 and hits[0] == hits[1]
+    sectors = -(-C * 4 // 32) * 32     # bytes of a table row's sectors
+    tables = 1 if ftrl is None else 2
+    gathered = int(torch.unique(lrk.gather_ids(keys, R)).numel())
+    fwd_bytes = B * K * 4 * 2 + B * 4 * 2 + gathered * sectors * tables \
+        + B * C * 4 * 2 + B * 4 * 2
+    fwd = dict(
+        name="sparse_lr_forward", ok=ok, max_abs_err=err,
+        tol=f"pred, diff |err| <= 1e-5 + 1e-4 |plain|; loss rel err "
+            f"{loss_rel:.2g} <= 1e-5; hits {hits[0]} = {hits[1]}",
+        source=_LR_SRC, replaces=_LR_REF + "objective.py:89",
+        library_ms=None, bound=bound(fwd_bytes, 2.0 * B * K * C))
+
+    count = torch.full((1,), float(max(int((weights > 0).sum()), 1)),
+                       device=device)
+    vg, dg = lr_grid(torch, values, ref[1], keys, R, float(count))
+    scale = 0.8
+
+    def push_buffers():
+        if not (ps and ftrl is not None):
+            return None
+        return (torch.zeros(R, C, device=device),
+                torch.zeros(R, C, device=device))
+
+    a, b = _clone_table(table), _clone_table(table)
+    pa, pb = push_buffers(), push_buffers()
+    want_rows = ps and ftrl is None
+    rows_a, delta_a = lrk.sparse_lr_apply(
+        a, keys, vg, dg, count, reg=reg, coef=config.regular_coef,
+        scale=scale, ftrl=ftrl, delta_rows=want_rows, push=pa)
+    touched = lrk.touched_rows(keys, R)
+    delta_b = lrk.sparse_lr_apply_plain(
+        b, touched, vg, dg, count, reg, config.regular_coef, scale, ftrl,
+        want_rows, pb)
+    pairs = list(zip((a,) if ftrl is None else a, (b,) if ftrl is None
+                     else b))
+    if want_rows:
+        pairs.append((delta_a, delta_b))
+    if pa is not None:
+        pairs += list(zip(pa, pb))
+    apply_err = max(float((x - y).abs().max()) for x, y in pairs)
+    same_rows = bool(torch.equal(rows_a, touched.rows))
+    U = int(touched.rows.numel())
+    app_bytes = B * K * 4 * 2 + B * C * 4 + 4 + U * sectors * 2 * tables \
+        + (U * C * 4 if want_rows else 0) \
+        + (U * sectors * 2 if pa is not None else 0)
+    app = dict(
+        name="sparse_lr_apply", ok=apply_err == 0.0 and same_rows,
+        max_abs_err=apply_err,
+        tol=f"bit-exact on grid-rounded values and diffs ({U} touched "
+            f"rows, the padding row's {int(touched.counts[-1])} "
+            f"positions among them)",
+        source=_LR_SRC, replaces=_LR_REF + "objective.py:89",
+        library_ms=None, bound=bound(app_bytes, 3.0 * B * K * C))
+    log(f"[{tag}] K11/K12 case: B={B} K={K} C={C} R={R} "
+        f"{'ftrl' if ftrl else 'sgd'} act={act} reg={reg} dup={dup} | "
+        f"{gathered} gathered rows, {U} touched | K11 "
+        f"{'OK' if fwd['ok'] else 'FAIL'} ({fwd['tol']}) | K12 "
+        f"{'OK' if app['ok'] else 'FAIL'} (max err {apply_err:g})")
+    if time_it:
+        ta, pa2 = _clone_table(table), push_buffers()
+        fwd["ms"] = time_ms(torch, lambda: lrk.sparse_lr_forward(
+            table, keys, values, labels, weights, act, ftrl))
+        fwd["plain_ms"] = time_ms(torch, lambda: lrk.sparse_lr_forward_plain(
+            table, keys, values, labels, weights, act, ftrl))
+
+        def run_kernel():
+            return lrk.sparse_lr_apply(
+                ta, keys, vg, dg, count, reg=reg, coef=config.regular_coef,
+                scale=scale, ftrl=ftrl, delta_rows=want_rows, push=pa2)
+
+        def run_plain():
+            return lrk.sparse_lr_apply_plain(
+                ta, lrk.touched_rows(keys, R), vg, dg, count, reg,
+                config.regular_coef, scale, ftrl, want_rows, pa2)
+
+        app["ms"] = time_ms(torch, run_kernel)
+        app["kernel_only_ms"] = time_ms(torch, run_kernel,
+                                        only="sparse_lr_apply_kernel")
+        app["plain_ms"] = time_ms(torch, run_plain)
+        log(f"[{tag}] K12 {app['ms']:.4f} ms a call, of which the kernel "
+            f"{app['kernel_only_ms']:.4f} ms (the rest: the ids' sort, "
+            f"unique and task split in torch)")
+    return [fwd, app]
+
+
+def lr_ps_table_checks(torch, np, model, batch, device):
+    """K2 and K3 where ``lr_sparse_ps`` runs them on the server: K2 at
+    the first pull (every row) and at a later pull (no row dirty: the
+    bucket of sentinel ids), K3 at the push of one batch's touched rows
+    (the sgd rule's scatter), each on a random table of the server's
+    shape."""
+    from multiverso_tpu_torch.kernels import logreg as lrk
+    from multiverso_tpu_torch.updater.engine import pad_ids
+    server = model._table.zoo.server_tables[model._table.table_id]
+    R = server._data.shape[0]
+    gen = torch.Generator(device=device)
+    gen.manual_seed(41)
+    table = torch.randn(tuple(server._data.shape), generator=gen,
+                        device=device)
+    every = torch.from_numpy(pad_ids(np.arange(R, dtype=np.int32), R)).to(
+        device)
+    none = torch.from_numpy(pad_ids(np.zeros(0, np.int32), R)).to(device)
+    keys = torch.from_numpy(batch.keys.astype(np.int32)).to(device)
+    rows = lrk.touched_rows(keys, R).rows
+    rows = rows[rows < model.config.input_size].to(torch.int32).cpu()
+    ids = torch.from_numpy(pad_ids(rows.numpy(), R)).to(device)
+    delta = torch.randn(rows.numel(), 1, generator=gen, device=device) \
+        * 1e-2
+    return [check_gather(torch, ((table, every), (table, none)), 1),
+            check_scatter(torch, ((table, ids, delta),), 1, row_bytes=32)]
+
+
+def lr_model(mv, family: str, config, device):
+    from multiverso_tpu_torch.models.logreg import (FTRLModel, LocalModel,
+                                                    PSModel)
+    dev = None if device.type == "cuda" else "cpu"
+    if config.use_ps:
+        mv.init([], device=dev)
+        return PSModel(config) if family == "ps" \
+            else FTRLModel(config, use_ps=True)
+    if family == "ftrl":
+        return FTRLModel(config, device=device)
+    return LocalModel(config, device=device)
+
+
+def drive_lr(torch, model, path: str, need, card: str, workdir: str,
+             profile_dir: str, batches, warm: int):
+    """``warm`` batches, then the rest counted: launch counts reset just
+    before and read just after, samples/s on the host clock (synced);
+    then the same batches under torch.profiler (device ms a batch of
+    kernels, the card's busy share). Every kernel of ``need`` must have
+    launched; every loss must be finite. Returns the counts."""
+    from multiverso_tpu_torch import kernels
+    from multiverso_tpu_torch.util.dashboard import Dashboard
+    cuda = model.device.type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    for b in batches[:warm]:
+        model.update(b)
+    counted = batches[warm:]
+    sync()
+    Dashboard.reset()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    losses = [model.update(b) for b in counted]
+    sync()
+    elapsed = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    samples = sum(b.count for b in counted)
+    log(f"[{path}] {card} | {len(counted)} batches of {counted[0].count} "
+        f"in {elapsed:.4f}s | {samples / elapsed:.0f} samples/s | "
+        f"{elapsed / len(counted) * 1e3:.3f} ms a batch | avg loss first "
+        f"{losses[0] / counted[0].count:.5f} last "
+        f"{losses[-1] / counted[-1].count:.5f}")
+    log(f"[{path}] kernel launches { {k: v for k, v in counts.items() if v} }")
+    for line in Dashboard.display().splitlines():
+        log(f"[{path}] {line}")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{path}: non-finite losses {losses}")
+    missing = [n for n in need if counts[n] <= 0] if cuda else []
+    if missing:
+        raise AssertionError(f"{path} never launched {missing}")
+    if cuda:
+        import torch.profiler as tp
+        with tp.profile(activities=[tp.ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for b in counted:
+                model.update(b)
+            sync()
+            wall = time.perf_counter() - t0
+        if profile_dir:
+            os.makedirs(profile_dir, exist_ok=True)
+        trace = os.path.join(profile_dir or workdir, f"{path}_trace.json")
+        n_kernels, busy_ms, kernel_ms = trace_kernels(prof, trace)
+        log(f"[{path}] profiled: {n_kernels} kernels, device "
+            f"{kernel_ms / len(counted):.4f} ms a batch of kernels, busy "
+            f"{busy_ms:.2f} ms of {wall * 1e3:.2f} ms wall "
+            f"({busy_ms / (wall * 1e3):.1%})")
+    return counts
+
+
+def write_lr_sparse(np, path: str, n: int = 96, d: int = 40, seed: int = 0):
+    """The tests' libsvm set (tests/test_logreg.py ``write_sparse_data``)."""
+    rng = np.random.default_rng(seed)
+    w_true = rng.standard_normal(d)
+    lines = []
+    for _ in range(n):
+        nnz = rng.integers(3, 8)
+        keys = np.sort(rng.choice(d, nnz, replace=False))
+        vals = rng.standard_normal(nnz)
+        label = int(w_true[keys] @ vals > 0)
+        lines.append(f"{label} " + " ".join(
+            f"{k}:{v:.5f}" for k, v in zip(keys, vals)))
+    with open(path, "w") as f:
+        f.write("\n".join(lines))
+
+
+def write_lr_dense(np, path: str, n: int = 100, d: int = 8,
+                   classes: int = 3, seed: int = 0):
+    """The tests' dense set (tests/test_logreg.py ``write_dense_data``)."""
+    rng = np.random.default_rng(seed)
+    centers = np.random.default_rng(42).standard_normal((classes, d)) * 3
+    lines = []
+    for _ in range(n):
+        label = rng.integers(0, classes)
+        x = centers[label] + rng.standard_normal(d) * 0.3
+        lines.append(str(label) + " " + " ".join(f"{v:.5f}" for v in x))
+    with open(path, "w") as f:
+        f.write("\n".join(lines))
+
+
+LR_SMALL = (
+    ("local sparse", "local", dict(_LR_SGD, learning_rate=0.5)),
+    ("local dense", "local", dict(objective_type="softmax",
+                                  updater_type="sgd", regular_type="L2",
+                                  learning_rate=0.5, sparse=False,
+                                  input_size=8, output_size=3,
+                                  minibatch_size=20)),
+    ("ftrl local", "ftrl", dict(objective_type="sigmoid",
+                                updater_type="ftrl", alpha=0.1,
+                                lambda1=0.01, lambda2=0.01)),
+    ("ps sparse", "ps", dict(_LR_SGD, learning_rate=0.5, use_ps=True)),
+    ("ps dense", "ps", dict(objective_type="softmax", updater_type="sgd",
+                            learning_rate=0.5, sparse=False, input_size=8,
+                            output_size=3, minibatch_size=20, use_ps=True,
+                            sync_frequency=2)),
+    ("ftrl ps", "ftrl", dict(objective_type="sigmoid", updater_type="ftrl",
+                             alpha=0.1, lambda1=0.01, lambda2=0.01,
+                             use_ps=True, sync_frequency=2)),
+)
+
+
+def small_lr_run(torch, np, mv, device, workdir: str, family: str,
+                 extra: dict):
+    """The tests' small set, 2 epochs from zero weights: (losses a batch,
+    correct counts a batch, final weights)."""
+    from multiverso_tpu_torch.models.logreg import (iter_samples,
+                                                    make_batches)
+    dense = extra.get("sparse") is False
+    path = os.path.join(workdir, "lr_small_dense.txt" if dense
+                        else "lr_small_sparse.txt")
+    (write_lr_dense if dense else write_lr_sparse)(np, path)
+    config = lr_config(extra, input_size=40, batch=16)
+    batches = list(make_batches(config, iter_samples(config, path))) * 2
+    model = lr_model(mv, family, config, device)
+    try:
+        losses = [model.update(b) for b in batches]
+        correct = []
+        for b in batches:
+            pred = model.predict(b)[:b.count]
+            guess = (pred[:, 0] >= 0.5).astype(np.int32) \
+                if pred.shape[1] == 1 else pred.argmax(1).astype(np.int32)
+            correct.append(int((guess == b.labels[:b.count]).sum()))
+        return np.asarray(losses), correct, np.asarray(model.weights)
+    finally:
+        if config.use_ps:
+            mv.shutdown()
+
+
+def lr_cli(np, device, workdir: str, samples: int) -> None:
+    """``python -m multiverso_tpu_torch.models.logreg.main <config>``:
+    train + test on a synthetic libsvm file of ``samples`` criteo-like
+    samples (the CPU rehearsal calls ``main`` in this process)."""
+    keys, values, labels = criteo_like(np, samples, seed=77)
+    data = os.path.join(workdir, "lr_cli.libsvm")
+    t0 = time.perf_counter()
+    with open(data, "w") as f:
+        for k, v, y in zip(keys, values, labels):
+            f.write(f"{y} " + " ".join(f"{a}:{b:.6g}" for a, b in zip(k, v))
+                    + "\n")
+    config = os.path.join(workdir, "lr_cli.config")
+    model_file = os.path.join(workdir, "lr_cli.model")
+    out_file = os.path.join(workdir, "lr_cli.out")
+    with open(config, "w") as f:
+        f.write(f"input_size={LR_FEATURES}\noutput_size=1\nsparse=true\n"
+                f"objective_type=sigmoid\nregular_type=L2\n"
+                f"updater_type=sgd\nminibatch_size={LR_BATCH}\n"
+                f"train_epoch=1\nshow_time_per_sample=20000\n"
+                f"train_file={data}\ntest_file={data}\n"
+                f"output_model_file={model_file}\noutput_file={out_file}\n")
+    t1 = time.perf_counter()
+    if device.type == "cuda":
+        here = os.path.dirname(os.path.abspath(__file__))
+        proc = subprocess.run(
+            [sys.executable, "-m", "multiverso_tpu_torch.models.logreg.main",
+             config], cwd=here, capture_output=True, text=True, timeout=600)
+        tail = (proc.stdout + proc.stderr).strip().splitlines()[-6:]
+        for line in tail:
+            log(f"[lr_cli]   {line}")
+        if proc.returncode != 0:
+            raise AssertionError(f"logreg CLI exited {proc.returncode}")
+    else:
+        from multiverso_tpu_torch.models.logreg.main import main as lr_main
+        if lr_main([config], device="cpu") != 0:
+            raise AssertionError("logreg CLI failed")
+    size = os.path.getsize(model_file)
+    with open(out_file) as f:
+        lines = sum(1 for _ in f)
+    if size != (LR_FEATURES + 1) * 4 or lines != samples:
+        raise AssertionError(f"logreg CLI wrote a {size}-byte model and "
+                             f"{lines} prediction lines")
+    log(f"[lr_cli] {samples} samples written in {t1 - t0:.1f}s; train + "
+        f"test in {time.perf_counter() - t1:.1f}s (rc 0): model "
+        f"{size} bytes, {lines} prediction lines")
+
+
+def run_logreg_phase(torch, np, mv, device, card: str, workdir: str,
+                     profile_dir: str, rehearsal: bool):
+    """Phase 9: the logistic-regression app on a seeded criteo-like
+    corpus. Returns (kernel results, launch counts per ``lr_*`` path)."""
+    batch = LR_BATCH // 64 if rehearsal else LR_BATCH
+    warm, counted = (2, 4) if rehearsal else (LR_WARM, LR_COUNTED)
+    t0 = time.perf_counter()
+    keys, values, labels = criteo_like(np, (warm + counted) * batch, seed=9)
+    batches = lr_batches(np, keys, values, labels, batch)
+    del keys, values, labels
+    log(f"[lr] {len(batches)} batches of {batch} criteo-like samples "
+        f"({LR_FEATURES} features, 39 a sample, padded to "
+        f"{batches[0].keys.shape[1]}) in {time.perf_counter() - t0:.1f}s")
+    results, counts = [], {}
+    cuda = device.type == "cuda"
+    if cuda:
+        # The extra cases: softmax at C=10, L1, duplicate keys in a
+        # sample, FTRL with L1 — at the first batch's shapes.
+        gen = torch.Generator(device=device)
+        gen.manual_seed(5)
+        extra = (dict(_LR_SGD, objective_type="softmax", output_size=10),
+                 dict(_LR_SGD, regular_type="L1"),
+                 dict(objective_type="sigmoid", updater_type="ftrl",
+                      regular_type="L1", regular_coef=0.001))
+        for i, cfg in enumerate(extra):
+            entries = lr_case(torch, np, f"lr extra {i}", lr_config(cfg),
+                              batches[0], gen, device, ps=i == 2, dup=True,
+                              time_it=False)
+            bad = [e["name"] for e in entries if not e["ok"]]
+            if bad:
+                raise AssertionError(f"lr extra case {i}: {bad} disagree")
+    for path, cfg, family in LR_SPARSE_PATHS:
+        config = lr_config(cfg, batch=batch)
+        model = lr_model(mv, family, config, device)
+        try:
+            need = ["sparse_lr_forward", "sparse_lr_apply"]
+            if cuda:
+                gen = torch.Generator(device=device)
+                gen.manual_seed(17)
+                entries = lr_case(torch, np, path, config, batches[0], gen,
+                                  device, ps=config.use_ps)
+                if family == "ps":
+                    entries += lr_ps_table_checks(torch, np, model,
+                                                  batches[0], device)
+                    need += ["row_gather", "row_scatter_add"]
+                results += report(entries, card, path)
+            counts[path] = drive_lr(torch, model, path, need, card, workdir,
+                                    profile_dir, batches, warm)
+            if not np.isfinite(model.weights).all():
+                raise AssertionError(f"{path}: non-finite weights")
+        finally:
+            if config.use_ps:
+                mv.shutdown()
+        del model
+        free(torch, device)
+    # lr_dense_ps: the mnist.config widths, torch only; the array table
+    # lives on the card.
+    from multiverso_tpu_torch.models.logreg import Batch, Configure, PSModel
+    rng = np.random.default_rng(3)
+    centers = rng.random((10, 784)).astype(np.float32)
+    dense = []
+    for _ in range(warm + counted):
+        y = rng.integers(0, 10, 20).astype(np.int32)
+        x = np.clip(centers[y] + rng.standard_normal((20, 784)) * 0.2, 0, 1)
+        dense.append(Batch(y, np.ones(20, np.float32),
+                           x=x.astype(np.float32), count=20))
+    mv.init([], device=None if cuda else "cpu")
+    try:
+        model = PSModel(Configure(**LR_DENSE))
+        server = model._table.zoo.server_tables[model._table.table_id]
+        if server._data.device != device:
+            raise AssertionError(f"the array table lies on "
+                                 f"{server._data.device}")
+        counts["lr_dense_ps"] = drive_lr(torch, model, "lr_dense_ps", (),
+                                         card, workdir, profile_dir, dense,
+                                         warm)
+    finally:
+        mv.shutdown()
+    del batches, dense
+    free(torch, device)
+    for tag, family, extra in LR_SMALL:
+        got = small_lr_run(torch, np, mv, device, workdir, family, extra)
+        ref = small_lr_run(torch, np, mv, torch.device("cpu"), workdir,
+                           family, extra)
+        if got[1] != ref[1]:
+            raise AssertionError(f"small input lr {tag}: correct counts "
+                                 f"{got[1]} vs {ref[1]}")
+        for name, g, r in (("losses", got[0], ref[0]),
+                           ("weights", got[2], ref[2])):
+            np.testing.assert_allclose(g, r, rtol=1e-4, atol=1e-6,
+                                       err_msg=f"lr {tag} {name}")
+        log(f"[small input] lr {tag}: card vs CPU plain path: losses "
+            f"{float(got[0].sum()):.6f} vs {float(ref[0].sum()):.6f}, "
+            f"correct {sum(got[1])} = {sum(ref[1])}, weights agree (rtol "
+            f"1e-4, atol 1e-6)")
+    lr_cli(np, device, workdir, 2000 if rehearsal else LR_CLI_SAMPLES)
+    return results, counts
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--cpu-rehearsal", action="store_true",
@@ -1394,9 +2004,10 @@ def main(argv=None) -> int:
                           small_run(torch, mv, device, workdir),
                           small_run(torch, mv, torch.device("cpu"),
                                     workdir))
-        # Phases 6-8 (the local pipeline, the PS pipeline's other
-        # configurations, the host-batch trainer): the PS tables go
-        # first; each phase frees its models before the next.
+        # Phases 6-9 (the local pipeline, the PS pipeline's other
+        # configurations, the host-batch trainer, logistic regression):
+        # the PS tables go first; each phase frees its models before the
+        # next.
         del model, trainer
         free(torch, device)
         counts = {"ps": counts}
@@ -1404,7 +2015,10 @@ def main(argv=None) -> int:
                   args.profile, dim, 64 if rehearsal else 1)
         phases = (lambda: run_local_phase(torch, np, *common),
                   lambda: run_ps_modes_phase(torch, np, mv, *common),
-                  lambda: run_hostbatch_phase(torch, np, mv, *common))
+                  lambda: run_hostbatch_phase(torch, np, mv, *common),
+                  lambda: run_logreg_phase(torch, np, mv, device, card,
+                                           workdir, args.profile,
+                                           rehearsal))
         for number, phase in enumerate(phases, 6):
             t0 = time.perf_counter()
             phase_results, phase_counts = phase()

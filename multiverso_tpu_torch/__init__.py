@@ -17,7 +17,8 @@ from typing import List, Optional
 
 from .runtime.zoo import (Zoo, current_zoo, set_default_zoo,  # noqa: F401
                           set_thread_zoo)
-from .tables import (KVTableOption, MatrixTableOption,  # noqa: F401
+from .tables import (ArrayTableOption, KVTableOption,  # noqa: F401
+                     MatrixTableOption, create_array_table,
                      create_kv_table, create_matrix_table, create_table)
 from .tables.table_interface import TableRequestError  # noqa: F401
 from .updater import AddOption, GetOption  # noqa: F401

@@ -18,6 +18,10 @@ pairlist_ns_grad   ``pairlist.py``           ``_compact_loss`` NS via
                                              ``_make_step_core`` (B9)
 pairlist_hs_grad   ``pairlist.py``           ``_compact_loss`` HS via
                                              ``_make_step_core`` (B9)
+sparse_lr_forward  ``logreg.py``             ``make_sparse_step`` forward
+                                             (B15)
+sparse_lr_apply    ``logreg.py``             ``make_sparse_step`` gradient
+                                             + the models' updates (B15)
 =================  ========================  ============================
 
 A wrapper given a CUDA tensor launches its kernel (built at first use
@@ -31,6 +35,7 @@ from typing import Dict
 
 from .cbow import banded_cbow_grad
 from .hs import banded_hs_sg_grad, hs_cbow_grad
+from .logreg import sparse_lr_apply, sparse_lr_forward
 from .pair import pair_offset_grad
 from .pairlist import pairlist_hs_grad, pairlist_ns_grad
 from .rows import row_gather, row_scatter_add
@@ -48,6 +53,8 @@ WRAPPERS = {
     "pair_offset_grad": pair_offset_grad,
     "pairlist_ns_grad": pairlist_ns_grad,
     "pairlist_hs_grad": pairlist_hs_grad,
+    "sparse_lr_forward": sparse_lr_forward,
+    "sparse_lr_apply": sparse_lr_apply,
 }
 
 

@@ -62,6 +62,11 @@ SIGNATURES = {
                             _F, _I, _P, _P, _P, _P, _P, _P, _P],
     "mv_pairlist_hs_grad": [_P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _F,
                             _I, _P, _P, _P, _P, _P, _P, _P],
+    "mv_sparse_lr_forward": [_P, _P, _P, _I64, _I, _P, _P, _I, _I, _P, _P,
+                             _I, _I, _F, _F, _F, _F, _P, _P, _P, _P, _P],
+    "mv_sparse_lr_apply": [_P, _P, _P, _I, _P, _P, _P, _P, _I64, _I, _P, _P,
+                           _P, _I, _P, _I, _F, _I, _F, _F, _F, _F, _F, _P,
+                           _P, _P, _P, _P, _P],
 }
 
 

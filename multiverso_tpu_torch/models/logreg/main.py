@@ -1,0 +1,120 @@
+"""LogisticRegression CLI: train + test from a config file.
+
+Port of ``multiverso_tpu/models/logreg/main.py``
+(ref: Applications/LogisticRegression/src/main.cpp:7-13, config-file
+driven, and src/logreg.cpp:41-173: epoch loop with periodic loss
+display; test writes predictions through the Stream layer). Every model
+family runs: local dense and sparse, through the parameter server
+(``use_ps=true``) dense and sparse, and FTRL locally and through the
+parameter server. The model lives on ``cuda:0`` unless ``main`` is
+given another device.
+
+Usage: ``python -m multiverso_tpu_torch.models.logreg.main <config-file>``
+"""
+
+from __future__ import annotations
+
+import sys
+import time
+
+import numpy as np
+
+from ... import init as mv_init, shutdown as mv_shutdown
+from ...io import StreamFactory
+from ...util import log
+from .config import Configure
+from .model import create_model
+from .reader import PrefetchReader, make_batches, iter_samples
+
+
+class LogReg:
+    """ref: src/logreg.{h,cpp}."""
+
+    def __init__(self, config_path: str, device=None):
+        self.config = Configure.from_file(config_path)
+        if self.config.use_ps:
+            mv_init([], device=device)
+        self.model = create_model(self.config, device=device)
+        if self.config.init_model_file:
+            with StreamFactory.get_stream(self.config.init_model_file,
+                                          "r") as stream:
+                self.model.load(stream)
+
+    # ref: logreg.cpp:41-87
+    def train(self) -> float:
+        config = self.config
+        last_loss = 0.0
+        for epoch in range(config.train_epoch):
+            sample_count, loss_sum = 0, 0.0
+            shown = 0
+            start = time.perf_counter()
+            for batch in PrefetchReader(config, config.train_file):
+                loss_sum += self.model.update(batch)
+                sample_count += batch.count
+                if sample_count - shown >= config.show_time_per_sample:
+                    log.info("epoch %d: %d samples, avg loss %.6f, "
+                             "%.0f samples/s", epoch, sample_count,
+                             loss_sum / sample_count,
+                             sample_count / (time.perf_counter() - start))
+                    shown = sample_count
+            last_loss = loss_sum / max(sample_count, 1)
+            log.info("epoch %d done: %d samples, avg train loss %.6f",
+                     epoch, sample_count, last_loss)
+        if config.output_model_file:
+            with StreamFactory.get_stream(config.output_model_file,
+                                          "w") as stream:
+                self.model.store(stream)
+        return last_loss
+
+    # ref: logreg.cpp:121-173
+    def test(self) -> float:
+        config = self.config
+        if not config.test_file:
+            return 0.0
+        correct, total = 0, 0
+        out_stream = StreamFactory.get_stream(config.output_file, "w") \
+            if config.output_file else None
+        for batch in make_batches(config,
+                                  iter_samples(config, config.test_file)):
+            pred = self.model.predict(batch)[:batch.count]
+            labels = batch.labels[:batch.count]
+            if pred.shape[1] == 1:
+                hits = (pred[:, 0] >= 0.5).astype(np.int32) == labels
+            else:
+                hits = pred.argmax(axis=1).astype(np.int32) == labels
+            correct += int(hits.sum())
+            total += batch.count
+            if out_stream is not None:
+                lines = "\n".join(
+                    " ".join(f"{v:.6f}" for v in row) for row in pred)
+                out_stream.write((lines + "\n").encode())
+        if out_stream is not None:
+            out_stream.close()
+        accuracy = correct / max(total, 1)
+        log.info("test: %d/%d correct (%.4f)", correct, total, accuracy)
+        return accuracy
+
+    def close(self) -> None:
+        if self.config.use_ps:
+            mv_shutdown()
+
+
+def main(argv=None, device=None) -> int:
+    """The CLI with the model on ``device`` (``cuda:0`` by default,
+    raising without a card; ``"cpu"`` runs on the CPU)."""
+    argv = argv if argv is not None else sys.argv[1:]
+    if not argv:
+        print("usage: python -m multiverso_tpu_torch.models.logreg.main "
+              "<config-file>", file=sys.stderr)
+        return 2
+    app = LogReg(argv[0], device=device)
+    try:
+        app.train()
+        app.test()
+    finally:
+        app.close()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

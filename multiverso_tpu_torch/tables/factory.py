@@ -4,8 +4,7 @@ Port of ``multiverso_tpu/tables/factory.py`` (ref: include/multiverso/
 table_factory.h:16-26, src/table_factory.cpp:8-22, include/multiverso/
 multiverso.h:35-41): on a server rank the server-side shard is created
 first, then the worker handle on worker ranks, followed by a barrier so
-every rank sees consistent table ids. Array tables are a later item of
-the port (ROADMAP A6).
+every rank sees consistent table ids.
 """
 
 from __future__ import annotations
@@ -17,6 +16,7 @@ import numpy as np
 
 from ..core.node import is_server, is_worker
 from ..runtime.zoo import current_zoo
+from .array_table import ArrayServer, ArrayWorker
 from .kv_table import KVServer, KVWorker
 from .matrix_table import MatrixServer, MatrixTableOption, MatrixWorker
 
@@ -25,6 +25,14 @@ def _table_role(zoo) -> int:
     if not zoo._nodes:
         raise RuntimeError("no parameter server on this rank")
     return zoo._nodes[zoo.rank].role
+
+
+@dataclass
+class ArrayTableOption:
+    """ref: include/multiverso/table/array_table.h (ArrayTableOption)."""
+    size: int
+    dtype: object = np.float32
+    updater_type: Optional[str] = None
 
 
 @dataclass
@@ -67,14 +75,26 @@ def create_kv_table(key_dtype=np.int64, val_dtype=np.float32,
     return worker
 
 
-def create_array_table(*args, **kwargs):
-    raise NotImplementedError("array tables are not ported yet "
-                              "(ROADMAP A6)")
+def create_array_table(size: int, dtype=np.float32,
+                       updater_type: Optional[str] = None,
+                       zoo=None) -> Optional[ArrayWorker]:
+    zoo = zoo if zoo is not None else current_zoo()
+    role = _table_role(zoo)
+    worker = None
+    if is_server(role):
+        ArrayServer(size, dtype, zoo=zoo, updater_type=updater_type)
+    if is_worker(role):
+        worker = ArrayWorker(size, dtype, zoo=zoo)
+    zoo.barrier()
+    return worker
 
 
 def create_table(option, zoo=None):
     """Dispatch on an option struct (the reference's templated
     MV_CreateTable, ref: multiverso.h:35-41)."""
+    if isinstance(option, ArrayTableOption):
+        return create_array_table(option.size, option.dtype,
+                                  option.updater_type, zoo=zoo)
     if isinstance(option, MatrixTableOption):
         return create_matrix_table(option.num_row, option.num_col,
                                    option.dtype, option.is_sparse,
@@ -82,5 +102,4 @@ def create_table(option, zoo=None):
                                    zoo=zoo)
     if isinstance(option, KVTableOption):
         return create_kv_table(option.key_dtype, option.val_dtype, zoo=zoo)
-    raise NotImplementedError(f"{type(option).__name__}: not ported yet "
-                              f"(ROADMAP A6)")
+    raise TypeError(f"unknown table option: {type(option).__name__}")

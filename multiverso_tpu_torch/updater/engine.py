@@ -58,10 +58,16 @@ class UpdateEngine:
     def apply_dense(self, data: torch.Tensor, delta,
                     option: Optional[AddOption] = None) -> torch.Tensor:
         """Whole-shard update; ``delta`` covers the logical rows and
-        columns and is zero-extended to the storage shape (the padding
-        adds zero, so only the logical block is touched)."""
+        columns (a 1-D shard: the logical elements) and is zero-extended
+        to the storage shape (the padding adds zero, so only the logical
+        block is touched)."""
         hyp, worker_id = _unpack(option)
         delta = _on(delta, data.device)
+        if data.dim() == 1:
+            size = delta.numel()
+            self.rule.dense(data[:size], self._state, delta.reshape(size),
+                            hyp, worker_id)
+            return data
         rows, cols = delta.shape[0], delta.shape[-1]
         view = data[:rows, :cols]
         self.rule.dense(view, self._state, delta.reshape(rows, cols), hyp,

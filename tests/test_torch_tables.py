@@ -173,7 +173,8 @@ def test_unported_tables_and_rules_raise():
     try:
         with pytest.raises(NotImplementedError, match="B12"):
             tmv.create_matrix_table(4, 4, updater_type="adagrad")
+        sparse = tmv.create_matrix_table(4, 4, is_sparse=True)
         with pytest.raises(NotImplementedError, match="A6"):
-            tmv.create_matrix_table(4, 4, is_sparse=True)
+            sparse.get_dirty_device()
     finally:
         tmv.shutdown()
