@@ -4,7 +4,7 @@ CUDA card.
 
 Phases, each fatal on failure:
 
-1. build the twelve hand-written kernels from ``multiverso_tpu_torch/csrc``
+1. build the fourteen hand-written kernels from ``multiverso_tpu_torch/csrc``
    (one ``nvcc`` per source, all started together) and print the build
    time and ``ptxas`` resource usage;
 2. set up the main path at the benchmark's full width: the synthetic
@@ -81,7 +81,27 @@ Phases, each fatal on failure:
    CPU in six model families (losses, correct counts and weights at
    rtol 1e-4 / atol 1e-6); and the CLI
    ``python -m multiverso_tpu_torch.models.logreg.main <config>``, train
-   + test on a 50,000-sample libsvm file.
+   + test on a 50,000-sample libsvm file;
+10. the table data plane, as the reference's table benchmark drives it
+   (``bench.py`` ``matrix_bandwidth``: 1,000,000 x 50 float32 tables,
+   every 10th row dirty, 100,000 a round padded to 131,072 ids): K13
+   under each stateful rule and K14 under default (bit for bit on
+   grid-rounded deltas) and each stateful rule against their plain
+   versions (also with 5% duplicate ids, wrapped and out-of-range ids,
+   one row at 4,096 positions and a worker past the state's slots; rtol
+   1e-5 / atol 1e-7), K2 and K3 at C=50, each timed on 5 sets of rows
+   in turn (no call finds its rows in L2); then the paths,
+   each 2 warm-up and 10 counted rounds (ms a round, the bench's GB/s,
+   every kernel launched, the last round checked against a shadow
+   table) and profiled (device ms a round, busy share): ``tbl_dense``
+   (whole-table adds of a device delta, then ``get_device``),
+   ``tbl_dirty_default`` (``add_rows`` + ``get_dirty_device``: K3, K2),
+   ``tbl_fused_default`` (``add_get_dirty_device`` with a device mirror
+   of the ids: K14), and ``tbl_dirty_<rule>`` (K13, K2) and
+   ``tbl_fused_<rule>`` (K14, host ids) for momentum, adagrad and
+   dcasgd on a pipelined table; finally the tests' small op sequence
+   under each rule on the card and on the CPU (ids equal, values,
+   tables and state within rtol 1e-4 / atol 1e-6).
 
 Phases 1-6 are as the second slice left them, the small-input checks
 now also comparing example counts, and K2 and K3 timed over all the
@@ -89,8 +109,8 @@ calls of a step (both tables) instead of the output table's alone. One
 Huffman tree of the bench dictionary serves every HS model of the run.
 
 Prints one JSON ``kernels`` line (one entry a path and kernel: ``ps``,
-``local_<mode>``, ``ps_<mode>``, ``hb_local_<mode>``, ``hb_ps_<mode>``
-or ``lr_<path>``, with that path's launches), the card's name and
+``local_<mode>``, ``ps_<mode>``, ``hb_local_<mode>``, ``hb_ps_<mode>``,
+``lr_<path>`` or ``tbl_<path>``, with that path's launches), the card's name and
 power limit, and
 as its last line ``{"ok": true, "device": {...}}``. Exits non-zero with
 no result when CUDA is not available or the package is missing.
@@ -98,7 +118,7 @@ no result when CUDA is not available or the package is missing.
 Usage: ``python3 chip_smoke.py`` (one card). ``--profile DIR`` adds a
 ``torch.profiler`` trace of 8 more blocks (Chrome trace in DIR, the
 device's busy share and the host monitors) and keeps the Chrome trace
-of every counted path. ``--cpu-rehearsal`` runs phases 2 and 4-9 at a
+of every counted path. ``--cpu-rehearsal`` runs phases 2 and 4-10 at a
 tiny size on the CPU with the plain versions (no kernels, no timing, no
 result line, exit code 3) to check the control flow on a host without a
 card.
@@ -108,6 +128,7 @@ from __future__ import annotations
 
 import argparse
 import gc
+import itertools
 import json
 import math
 import os
@@ -216,8 +237,16 @@ def time_ms(torch, fn, reps: int = REPS, only: str = "") -> float:
     kernel it launches (with ``only``: of the kernels whose name holds
     it), from a ``torch.profiler`` trace of ``reps`` calls after
     warm-up, divided by ``reps``. (CUDA events around a call of a ~20 us
-    kernel would also time the Python wrapper's launch.)"""
+    kernel would also time the Python wrapper's launch.) ``fn`` may be a
+    list of calls doing the same work on different inputs: they are
+    made in turn, so that a call whose inputs are larger than a share of
+    L2 does not find them there."""
     import torch.profiler as tp
+    if isinstance(fn, list):
+        turn = itertools.cycle(fn)
+
+        def fn():
+            return next(turn)()
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -334,9 +363,26 @@ def check_subsample(torch, corpus, u):
         bound=bound(T * 4 * 3 + V * 4 + T * 4 * 2 + 4))
 
 
-def check_gather(torch, cases, D: int):
+def touched_rows(torch, ids, rows: int) -> int:
+    """Distinct table rows that ``ids`` reach: ids in [-rows, -1] wrap;
+    every other id out of range (the pad sentinel among them) reads and
+    writes no row."""
+    flat = ids.reshape(-1).to(torch.int64)
+    flat = torch.where(flat < 0, flat + rows, flat)
+    return int(torch.unique(flat[(flat >= 0) & (flat < rows)]).numel())
+
+
+def in_turn(sets, call):
+    """One call a set, ``call(*case)`` on each case of the set: the list
+    ``time_ms`` takes in turn."""
+    return [lambda s=s: [call(*c) for c in s] for s in sets]
+
+
+def check_gather(torch, cases, D: int, rotate=()):
     """K2 on ``cases``, the step's (table, ids) pairs: bit-exact on
-    every pair; timed over all of them, as the step launches them."""
+    every pair; timed over all of them, as the step launches them.
+    ``rotate``: further case lists of the same shapes on other rows,
+    timed in turn with ``cases`` (see ``time_ms``)."""
     from multiverso_tpu_torch.kernels import rows
     err, n_bytes = 0.0, 0
     for table, ids in cases:
@@ -344,22 +390,23 @@ def check_gather(torch, cases, D: int):
         r = rows.row_gather_plain(table, ids, D)
         err = max(err, float((g - r).abs().max()))
         k = ids.numel()
-        n_bytes += k * 4 + int(torch.unique(ids).numel()) * D * 4 \
+        n_bytes += k * 4 + touched_rows(torch, ids, table.shape[0]) * D * 4 \
             + k * D * 4
+    sets = [list(cases)] + [list(c) for c in rotate]
     # The library call raises on the pad sentinel: clamp it (outside the
     # timed call; in-range ids are left as they are).
-    lookups = [(table, ids.to(torch.int64).clamp(0, table.shape[0] - 1))
-               for table, ids in cases]
+    lookups = [[(table, ids.to(torch.int64).clamp(0, table.shape[0] - 1))
+                for table, ids in s] for s in sets]
     return dict(
         name="row_gather", tol="bit-exact", max_abs_err=err, ok=err == 0.0,
         source="multiverso_tpu_torch/csrc/row_gather.cu",
         replaces="multiverso_tpu/tables/matrix_table.py:2761",
-        ms=time_ms(torch, lambda: [rows.row_gather(t, ids, D)
-                                   for t, ids in cases]),
-        plain_ms=time_ms(torch, lambda: [rows.row_gather_plain(t, ids, D)
-                                         for t, ids in cases]),
-        library_ms=time_ms(torch, lambda: [t.index_select(0, ids)
-                                           for t, ids in lookups]),
+        ms=time_ms(torch, in_turn(
+            sets, lambda t, ids: rows.row_gather(t, ids, D))),
+        plain_ms=time_ms(torch, in_turn(
+            sets, lambda t, ids: rows.row_gather_plain(t, ids, D))),
+        library_ms=time_ms(torch, in_turn(
+            lookups, lambda t, ids: t.index_select(0, ids))),
         bound=bound(n_bytes))
 
 
@@ -381,12 +428,14 @@ def on_grid(torch, table, ids, delta):
     return torch.round(table * grid) / grid, torch.round(delta * grid) / grid
 
 
-def check_scatter(torch, cases, D: int, row_bytes: int = 0):
+def check_scatter(torch, cases, D: int, row_bytes: int = 0, rotate=()):
     """K3 on ``cases``, the step's (table, ids, delta) triples, each
     rounded ``on_grid``: bit-exact on every triple, duplicate ids and
     the Zipf head included; timed over all of them, as the step launches
-    them. A table row read or written costs ``row_bytes`` in the bound
-    (default ``D * 4``; 32 for rows narrower than a sector)."""
+    them (``rotate``: as in ``check_gather``). The bound counts the ids
+    and rows of the delta, and each table row they reach read and
+    written at ``row_bytes`` (default ``D * 4``; 32 for rows narrower
+    than a sector)."""
     from multiverso_tpu_torch.kernels import rows
     err, nonzero, n_bytes = 0.0, [], 0
     for table, ids, delta in cases:
@@ -397,27 +446,29 @@ def check_scatter(torch, cases, D: int, row_bytes: int = 0):
         rows.row_scatter_add_plain(base, ids, grid_delta, 1.0)
         err = max(err, float((a - base).abs().max()))
         del a, base
-        k = ids.numel()
-        n_bytes += k * 4 + k * D * 4 \
-            + 2 * int(torch.unique(ids).numel()) * (row_bytes or D * 4)
-    scratch = [(table.clone(), ids,
-                ids.reshape(-1)[:delta.shape[0]].to(torch.int64), delta)
-               for table, ids, delta in cases]
+        k = delta.shape[0]
+        reached = touched_rows(torch, ids.reshape(-1)[:k], table.shape[0])
+        n_bytes += k * 4 + k * D * 4 + 2 * reached * (row_bytes or D * 4)
+    clones = {}
+    sets = [[(clones.setdefault(id(table), table.clone()), ids,
+              ids.reshape(-1)[:delta.shape[0]].to(torch.int64), delta)
+             for table, ids, delta in s] for s in [cases, *rotate]]
     result = dict(
         name="row_scatter_add",
         tol=f"bit-exact on grid-rounded deltas ({[round(x, 3) for x in nonzero]}"
             f" of them nonzero)", max_abs_err=err, ok=err == 0.0,
         source="multiverso_tpu_torch/csrc/row_scatter_add.cu",
         replaces="multiverso_tpu/updater/rules.py:94",
-        ms=time_ms(torch, lambda: [rows.row_scatter_add(t, ids, d, 1.0)
-                                   for t, ids, _, d in scratch]),
-        plain_ms=time_ms(torch, lambda: [
-            rows.row_scatter_add_plain(t, ids, d, 1.0)
-            for t, ids, _, d in scratch]),
-        library_ms=time_ms(torch, lambda: [t.index_add_(0, ids64, d)
-                                           for t, _, ids64, d in scratch]),
+        ms=time_ms(torch, in_turn(
+            sets, lambda t, ids, _, d: rows.row_scatter_add(t, ids, d, 1.0))),
+        plain_ms=time_ms(torch, in_turn(
+            sets, lambda t, ids, _, d: rows.row_scatter_add_plain(
+                t, ids, d, 1.0))),
+        library_ms=time_ms(torch, in_turn(
+            sets, lambda t, _, ids64, d: t.narrow(1, 0, d.shape[1])
+            .index_add_(0, ids64, d))),
         bound=bound(n_bytes))
-    del scratch
+    del sets, clones
     return result
 
 
@@ -1929,6 +1980,508 @@ def run_logreg_phase(torch, np, mv, device, card: str, workdir: str,
     return results, counts
 
 
+# -- phase 10: the table data plane --
+
+# bench.py matrix_bandwidth (:3587-3700), the reference's port of the
+# upstream test_matrix_perf.cpp: 1,000,000 x 50 float32 tables, every 10th
+# row dirty (100,000 a round, ids bucket-padded to 131,072), 10 rounds.
+TBL_ROWS, TBL_COLS, TBL_EVERY = 1_000_000, 50, 10
+TBL_WARM, TBL_ITERS = 2, 10
+TBL_HYP = dict(momentum=0.9, learning_rate=0.01, rho=0.1, lambda_=0.1)
+# (path suffix, updater_type, the reference's rows program)
+TBL_RULES = (("momentum", "momentum_sgd", "multiverso_tpu/updater/rules.py:120"),
+             ("adagrad", "adagrad", "multiverso_tpu/updater/rules.py:144"),
+             ("dcasgd", "dcasgd", "multiverso_tpu/updater/rules.py:184"))
+# Float operations a rule takes an element and occurrence (rules.py).
+TBL_FLOPS = {"default": 1, "momentum": 4, "adagrad": 8, "dcasgd": 9}
+TBL_TOL = dict(rtol=1e-5, atol=1e-7)
+# Sets of ids and deltas timed in turn: 4 others (~45-100 MB each) pass
+# between two calls on one set, more than the card's 50 MB L2.
+TBL_ROTATE = 5
+# The id sets K13 and K14 are checked on (``tbl_kernel_checks``).
+TBL_CASES = ("bench ids", "5% duplicates", "edge ids", "one row 4,096 times",
+             "a worker past the slots")
+
+
+def tbl_state(torch, rule: str, table, gen):
+    """A seeded state of ``rule`` for ``table`` [R, S]: momentum's
+    smoothed deltas, AdaGrad's squared gradients (>= 0), DCASGD's backup
+    near the table; one worker slot, as the zoo has one worker."""
+    noise = torch.randn(table.shape, generator=gen, device=table.device)
+    if rule == "momentum":
+        return noise * 0.01
+    if rule == "adagrad":
+        return (noise.abs() * 0.01)[None].contiguous()
+    return (table + noise * 0.01)[None].contiguous()
+
+
+def tbl_rows_bytes(n: int, k: int, uniq: int, C: int, state: bool) -> int:
+    """Bytes a row update must move: the ids, the delta, each touched row
+    read and written, and its state row read and written."""
+    return n * 4 + k * C * 4 + uniq * C * 4 * (4 if state else 2)
+
+
+def tbl_check_rule(torch, rules, rule: str, replaces: str, table, state,
+                   cases, sets, hyp, C: int):
+    """K13 against its plain version on each (ids, delta, worker) of
+    ``cases`` (data and state within TBL_TOL), then timed on the
+    (ids, delta) ``sets`` in turn, worker 0."""
+    err, failed = 0.0, []
+    for name, (ids, delta, worker) in zip(TBL_CASES, cases):
+        a_d, a_s, b_d, b_s = table.clone(), state.clone(), table.clone(), \
+            state.clone()
+        rules.row_rule_apply(rule, a_d, a_s, ids, delta, hyp, worker)
+        rules.row_rule_apply_plain(rule, b_d, b_s, ids, delta, hyp, worker)
+        case_err = max(float((a_d - b_d).abs().max()),
+                       float((a_s - b_s).abs().max()))
+        err = max(err, case_err)
+        if not (torch.allclose(a_d, b_d, **TBL_TOL)
+                and torch.allclose(a_s, b_s, **TBL_TOL)):
+            failed.append(f"{name} ({case_err:g})")
+        del a_d, a_s, b_d, b_s
+    ids, delta = sets[0]
+    uniq = touched_rows(torch, ids, table.shape[0])
+    a_d, a_s = table.clone(), state.clone()
+    result = dict(
+        name="row_rule_apply", tol="rtol 1e-5 / atol 1e-7 (data, state) "
+        f"on {', '.join(TBL_CASES[:len(cases)])}"
+        + (f"; FAILED on {failed}" if failed else ""),
+        max_abs_err=err, ok=not failed,
+        source="multiverso_tpu_torch/csrc/row_rules.cu", replaces=replaces,
+        ms=time_ms(torch, in_turn([[s] for s in sets], lambda i, d: rules.
+                                  row_rule_apply(rule, a_d, a_s, i, d, hyp,
+                                                 0))),
+        plain_ms=time_ms(torch, in_turn(
+            [[s] for s in sets], lambda i, d: rules.row_rule_apply_plain(
+                rule, a_d, a_s, i, d, hyp, 0))),
+        library_ms=None,
+        bound=bound(tbl_rows_bytes(ids.numel(), delta.shape[0], uniq, C,
+                                   True),
+                    TBL_FLOPS[rule] * touched_ids(torch, ids, table) * C))
+    del a_d, a_s
+    return result
+
+
+def touched_ids(torch, ids, table) -> int:
+    """Occurrences of ``ids`` that reach a row of ``table``."""
+    flat = ids.to(torch.int64)
+    R = table.shape[0]
+    return int(((flat >= -R) & (flat < R)).sum())
+
+
+def tbl_check_fused(torch, rules, rule: str, table, state, cases, sets,
+                    hyp, C: int):
+    """K14 against its plain version on each (ids, delta, worker) of
+    ``cases``, gathering the same ids: values, table and state bit for
+    bit under the default rule (the caller rounds table and deltas to a
+    grid), within TBL_TOL otherwise; then timed on the (ids, delta)
+    ``sets`` in turn, worker 0."""
+    err, failed = 0.0, []
+    exact = state is None
+    for name, (ids, delta, worker) in zip(TBL_CASES, cases):
+        a_d, b_d = table.clone(), table.clone()
+        a_s = None if exact else state.clone()
+        b_s = None if exact else state.clone()
+        va = rules.rows_apply_gather(rule, a_d, a_s, ids, delta, hyp, worker,
+                                     ids, C)
+        vb = rules.rows_apply_gather_plain(rule, b_d, b_s, ids, delta, hyp,
+                                           worker, ids, C)
+        pairs = [(va, vb), (a_d, b_d)] + ([] if exact else [(a_s, b_s)])
+        case_err = max(float((x - y).abs().max()) for x, y in pairs)
+        err = max(err, case_err)
+        if not all(torch.equal(x, y) if exact
+                   else torch.allclose(x, y, **TBL_TOL) for x, y in pairs):
+            failed.append(f"{name} ({case_err:g})")
+        del a_d, b_d, a_s, b_s, va, vb
+    ids, delta = sets[0]
+    uniq = touched_rows(torch, ids, table.shape[0])
+    # The update's bytes, the gather's ids and values; the rows gathered
+    # are the rows just updated, which need no second read.
+    n_bytes = tbl_rows_bytes(ids.numel(), delta.shape[0], uniq, C,
+                             not exact) + ids.numel() * 4 \
+        + ids.numel() * C * 4
+    a_d = table.clone()
+    a_s = None if exact else state.clone()
+    result = dict(
+        name="rows_apply_gather",
+        tol=("bit-exact on grid-rounded deltas (values, table)" if exact
+             else "rtol 1e-5 / atol 1e-7 (values, table, state)")
+        + f" on {', '.join(TBL_CASES[:len(cases)])}"
+        + (f"; FAILED on {failed}" if failed else ""),
+        max_abs_err=err, ok=not failed,
+        source="multiverso_tpu_torch/csrc/row_rules.cu",
+        replaces="multiverso_tpu/updater/engine.py:155",
+        ms=time_ms(torch, in_turn(
+            [[s] for s in sets], lambda i, d: rules.rows_apply_gather(
+                rule, a_d, a_s, i, d, hyp, 0, i, C))),
+        plain_ms=time_ms(torch, in_turn(
+            [[s] for s in sets], lambda i, d: rules.rows_apply_gather_plain(
+                rule, a_d, a_s, i, d, hyp, 0, i, C))),
+        library_ms=None,
+        bound=bound(n_bytes,
+                    TBL_FLOPS[rule] * touched_ids(torch, ids, table) * C))
+    del a_d, a_s
+    return result
+
+
+def tbl_edge_ids(np, rows, R: int):
+    """The bench's ids with the edges of the id contract: the pad
+    sentinel, ids past it, wrapped negatives (alone, and beside their
+    positive twins: -10 and -R) and ids below -R, some past the delta's
+    rows; and the bench's ids with one row at 4,096 positions."""
+    from multiverso_tpu_torch.updater.engine import pad_ids
+    edges = pad_ids(rows, R)
+    n = rows.size
+    at = [3, 77, n // 20, n // 3, n // 2 + 1, 3 * n // 4, n - 2,
+          (n + edges.size) // 2, edges.size - 1]  # the last two: no delta
+    edges[at] = [R, R + 3, -1, -R, -(R + 2), R - 1, -2, 2 ** 30, -10]
+    run = pad_ids(rows, R)
+    run[1000:1000 + 4096] = run[1000]
+    return edges, run
+
+
+def tbl_kernel_checks(torch, np, device, card: str):
+    """Phase 10a: K13, K14, K2 and K3 against their plain versions at the
+    bench's shapes, then timed on TBL_ROTATE sets of ids and deltas in
+    turn (each set's rows, a row's state and delta fill most of L2).
+    Returns {path: [results]}."""
+    from multiverso_tpu_torch.kernels import rules
+    from multiverso_tpu_torch.updater import AddOption
+    from multiverso_tpu_torch.updater.engine import pad_ids
+    R, C, S = TBL_ROWS, TBL_COLS, 128  # storage pads 50 columns to 128
+    gen = torch.Generator(device=device)
+    gen.manual_seed(10)
+    table = torch.randn((R, S), generator=gen, device=device) * 0.1
+    table[:, C:] = 0.0
+    rows = np.arange(R // TBL_EVERY, dtype=np.int32) * TBL_EVERY
+    # Set j takes rows j, 10 + j, ...: the same shapes on other rows.
+    sets = [(torch.from_numpy(pad_ids(rows + j, R)).to(device),
+             torch.randn((rows.size, C), generator=gen, device=device)
+             * 0.01) for j in range(TBL_ROTATE)]
+    ids, delta = sets[0]
+    # 5% of the positions repeat another position's row.
+    rng = np.random.default_rng(11)
+    dup_np = pad_ids(rows, R)
+    pick = rng.choice(rows.size, rows.size // 20, replace=False)
+    dup_np[pick] = rows[rng.integers(0, rows.size, pick.size)]
+    dup = torch.from_numpy(dup_np).to(device)
+    edges, run = (torch.from_numpy(x).to(device)
+                  for x in tbl_edge_ids(np, rows, R))
+    hyp = AddOption(**TBL_HYP).hyper_array()
+    # In TBL_CASES' order; worker 1 is past the one slot. The row at
+    # 4,096 positions takes deltas of one sign, so that its steps sum
+    # away from zero. With both signs they cancel, and the sum's last
+    # digits then depend on the order of the additions (the plain version
+    # on the card adds with atomics) and on the last bit of each AdaGrad
+    # step (rsqrtf) by more than rtol 1e-5 of the sum.
+    cases = [(ids, delta, 0), (dup, delta, 0), (edges, delta, 0),
+             (run, delta.abs(), 0), (ids, delta, 1)]
+    out = {}
+    for suffix, _, replaces in TBL_RULES:
+        state = tbl_state(torch, suffix, table, gen)
+        out[f"tbl_dirty_{suffix}"] = [tbl_check_rule(
+            torch, rules, suffix, replaces, table, state, cases, sets, hyp,
+            C)]
+        out[f"tbl_fused_{suffix}"] = [tbl_check_fused(
+            torch, rules, suffix, table, state, cases, sets, hyp, C)]
+        del state
+    # The grid of the deltas' largest sum: the row at 4,096 positions.
+    base, grid_delta = on_grid(torch, table, run, delta)
+    out["tbl_fused_default"] = [tbl_check_fused(
+        torch, rules, "default", base, None,
+        [(i, grid_delta, 0) for i in (ids, dup, edges, run)], sets, hyp, C)]
+    gather = check_gather(torch, [(table, ids)], C,
+                          rotate=[[(table, i)] for i, _ in sets[1:]])
+    out["tbl_dirty_default"] = [check_scatter(
+        torch, [(table, ids, delta)], C,
+        rotate=[[(table, i, d)] for i, d in sets[1:]]), gather]
+    for suffix, _, _ in TBL_RULES:
+        out[f"tbl_dirty_{suffix}"].append(dict(gather))
+    del table, base, grid_delta, sets
+    for path, entries in out.items():
+        report(entries, card, path)
+    return out
+
+
+def tbl_profile(torch, path: str, rounds, workdir: str, profile_dir: str,
+                n_rounds: int):
+    """(device ms a round of kernels, busy share) of ``n_rounds`` more
+    rounds under torch.profiler."""
+    import torch.profiler as tp
+    with tp.profile(activities=[tp.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n_rounds):
+            rounds()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    trace = os.path.join(profile_dir or workdir, f"{path}_trace.json")
+    if profile_dir:
+        os.makedirs(profile_dir, exist_ok=True)
+    _, busy_ms, kernel_ms = trace_kernels(prof, trace)
+    return kernel_ms / n_rounds, busy_ms / (wall * 1e3)
+
+
+def tbl_drive(torch, path: str, card: str, need, one_round, round_bytes,
+              workdir: str, profile_dir: str, iters: int, check):
+    """TBL_WARM rounds, then ``iters`` counted with the launch counts reset
+    just before and read just after (ms a round on the host clock,
+    synced; the bench's GB/s; the host monitors), ``check`` on the last
+    round's result, then, on the card (``need`` not None: the kernels
+    that must have launched), ``iters`` rounds profiled. Returns the
+    counts."""
+    from multiverso_tpu_torch import kernels
+    from multiverso_tpu_torch.util.dashboard import Dashboard
+    cuda = need is not None
+    for _ in range(TBL_WARM):
+        one_round()
+    if cuda:
+        torch.cuda.synchronize()
+    Dashboard.reset()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        last = one_round()
+    if cuda:
+        torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    monitors = Dashboard.display()
+    check(last)
+    ms = elapsed / iters * 1e3
+    line = (f"[{path}] {card} | {iters} rounds in {elapsed:.4f}s | "
+            f"{ms:.3f} ms a round | {round_bytes / (ms / 1e3) / 1e9:.3f} "
+            f"GB/s (bench bytes {round_bytes}) | kernel launches "
+            f"{ {k: v for k, v in counts.items() if v} }")
+    if cuda:
+        missing = [n for n in need if counts[n] <= 0]
+        if missing:
+            raise AssertionError(f"{path} never launched {missing}")
+        dev_ms, busy = tbl_profile(torch, path, one_round, workdir,
+                                   profile_dir, iters)
+        line += f" | profiled: device {dev_ms:.4f} ms a round, busy {busy:.1%}"
+    log(line)
+    for entry in monitors.splitlines():
+        log(f"[{path}] {entry}")
+    return counts
+
+
+def tbl_dense_path(torch, np, mv, device, card: str, workdir: str,
+                   profile_dir: str, R: int, C: int):
+    """``tbl_dense``: whole-table adds of a device delta, then
+    ``get_device`` (bench.py:3599-3620: ones, so every sum is exact)."""
+    cuda = device.type == "cuda"
+    mv.init([], device=None if cuda else "cpu")
+    try:
+        table = mv.create_matrix_table(R, C)
+        delta = torch.ones((R, C), device=device)
+        added = [0]
+
+        def add_round():
+            table.add(delta)
+            added[0] += 1
+
+        def check_add(_):
+            got = table.get_device()
+            if not bool((got == float(added[0])).all()):
+                raise AssertionError("tbl_dense: the adds did not sum")
+
+        nbytes = R * C * 4
+        tbl_drive(torch, "tbl_dense add", card, () if cuda else None,
+                  add_round, nbytes, workdir, profile_dir, TBL_ITERS,
+                  check_add)
+
+        def check_get(got):
+            if tuple(got.shape) != (R, C) or got.device != device \
+                    or not bool((got == float(added[0])).all()):
+                raise AssertionError("tbl_dense: bad get_device reply")
+
+        counts = tbl_drive(torch, "tbl_dense get_device", card,
+                           () if cuda else None, table.get_device, nbytes,
+                           workdir, profile_dir, TBL_ITERS, check_get)
+        del table, delta
+    finally:
+        mv.shutdown()
+    return counts
+
+
+def tbl_sparse_paths(torch, np, mv, device, card: str, workdir: str,
+                     profile_dir: str, R: int, C: int, rule: str,
+                     updater_type):
+    """The dirty and fused paths of one rule on one sparse table: the
+    bench's options under the default rule (worker 1 adds, worker 0
+    reads; the fused round with a device mirror of the ids); on a
+    pipelined table under a stateful rule (the composed rounds add as
+    worker -1, which dirties every consumer and takes worker 0's state;
+    the fused rounds add as worker 0 and read consumer 1, host ids).
+    The last counted round's values are checked against a shadow table
+    that the plain rule brings up to date outside the timed rounds."""
+    from multiverso_tpu_torch.kernels import rules as krules
+    from multiverso_tpu_torch.updater import AddOption, create_rule
+    from multiverso_tpu_torch.updater.engine import pad_ids
+    cuda = device.type == "cuda"
+    stateful = rule != "default"
+    mv.init([], device=None if cuda else "cpu")
+    counts = {}
+    try:
+        sparse = mv.create_matrix_table(R, C, is_sparse=True,
+                                        is_pipeline=stateful,
+                                        updater_type=updater_type)
+        sparse.get_dirty_device()  # the initial full sync of consumer 0
+        rows = np.arange(R // TBL_EVERY, dtype=np.int32) * TBL_EVERY
+        gen = torch.Generator(device=device)
+        gen.manual_seed(12)
+        dev_delta = torch.randn((rows.size, C), generator=gen,
+                                device=device) * 0.01
+        if not stateful:  # multiples of 2^-16: every sum is exact
+            dev_delta = torch.round(dev_delta * 65536) / 65536
+        dev_ids = torch.from_numpy(pad_ids(rows, R)).to(device)
+        hyp = AddOption(**TBL_HYP).hyper_array()
+        shadow = torch.zeros((R, C), device=device)
+        shadow_state = create_rule(updater_type).init_state(
+            (R, C), np.float32, 1, device) if stateful else None
+
+        pending = [0]  # rounds the shadow has not taken yet
+
+        def check(result):
+            for _ in range(pending[0]):
+                if stateful:
+                    krules.row_rule_apply_plain(rule, shadow, shadow_state,
+                                                dev_ids, dev_delta, hyp, 0)
+                else:
+                    shadow[torch.from_numpy(rows).to(device)] += dev_delta
+            pending[0] = 0
+            ids, vals = result
+            if not np.array_equal(ids, rows):
+                raise AssertionError(f"{rule}: dirty ids are not the added "
+                                     f"rows ({ids.size} ids)")
+            want = shadow[torch.from_numpy(rows).to(device)]
+            same = torch.equal(vals, want) if not stateful \
+                else torch.allclose(vals, want, **TBL_TOL)
+            if not same:
+                raise AssertionError(f"{rule}: dirty values disagree with "
+                                     f"the shadow table (max "
+                                     f"{float((vals - want).abs().max()):g})")
+
+        composed = AddOption(worker_id=-1 if stateful else 1, **TBL_HYP)
+        fused = AddOption(worker_id=0 if stateful else 1, **TBL_HYP)
+        reader = 1 if stateful else 0
+
+        def dirty_round():
+            sparse.add_rows(rows, dev_delta, option=composed)
+            pending[0] += 1
+            return sparse.get_dirty_device()
+
+        def fused_round():
+            mirror = None if stateful else dev_ids
+            result = sparse.add_get_dirty_device(
+                rows, dev_delta, option=fused, get_worker=reader,
+                row_ids_device=mirror)
+            pending[0] += 1
+            return result
+
+        round_bytes = rows.size * C * 4 * 2  # bench.py:3661
+        need = (["row_scatter_add", "row_gather"] if not stateful
+                else ["row_rule_apply", "row_gather"]) if cuda else None
+        counts[f"tbl_dirty_{rule}"] = tbl_drive(
+            torch, f"tbl_dirty_{rule}", card, need, dirty_round, round_bytes,
+            workdir, profile_dir, TBL_ITERS, check)
+        if stateful:
+            # Consumer 1's first read returns every row it has not read.
+            fused_round()
+        counts[f"tbl_fused_{rule}"] = tbl_drive(
+            torch, f"tbl_fused_{rule}", card,
+            ["rows_apply_gather"] if cuda else None, fused_round,
+            round_bytes, workdir, profile_dir, TBL_ITERS, check)
+        del sparse, dev_delta, shadow, shadow_state
+    finally:
+        mv.shutdown()
+    return counts
+
+
+def tbl_small_sequence(torch, np, mv, device, updater_type: str):
+    """The tests' op sequence (tests/test_torch_sparse_device.py) on a
+    pipelined 64 x 5 table with duplicate ids: adds, dirty Gets and
+    fused rounds; returns every id vector, value, table and state."""
+    from multiverso_tpu_torch.updater import AddOption
+    mv.init([], device=None if device.type == "cuda" else "cpu")
+    out = {}
+    try:
+        t = mv.create_matrix_table(64, 5, is_sparse=True, is_pipeline=True,
+                                   updater_type=updater_type)
+        server = mv.current_zoo().server_tables[t.table_id]
+        rng = np.random.default_rng(7)
+        rows = np.array([2, 9, 40, 9, 63, 2], np.int32)
+
+        def delta(k):
+            return torch.from_numpy((rng.standard_normal((k, 5)) * 0.05)
+                                    .astype(np.float32)).to(device)
+
+        def keep(tag, result):
+            out[f"ids_{tag}"] = result[0]
+            out[f"vals_{tag}"] = result[1].cpu().numpy()
+
+        keep("init", t.get_dirty_device())
+        composed = AddOption(worker_id=-1, **TBL_HYP)
+        fused = AddOption(worker_id=0, **TBL_HYP)
+        for i in range(3):
+            t.add_rows(rows, delta(rows.size), option=composed)
+            keep(f"dirty{i}", t.get_dirty_device())
+            sub = rows[:4] if i == 1 else rows
+            keep(f"fused{i}", t.add_get_dirty_device(
+                sub, delta(sub.size), option=fused, get_worker=1))
+        out["table"] = server.raw.cpu().numpy()
+        state = server._engine.state
+        if state is not None:
+            out["state"] = state.cpu().numpy()
+    finally:
+        mv.shutdown()
+    return out
+
+
+def run_table_phase(torch, np, mv, device, card: str, workdir: str,
+                    profile_dir: str, rehearsal: bool):
+    """Phase 10: the table data plane (bench.py matrix_bandwidth). Returns
+    (kernel results, launch counts per ``tbl_*`` path)."""
+    cuda = device.type == "cuda"
+    R = TBL_ROWS // 1000 if rehearsal else TBL_ROWS
+    results = []
+    checks = tbl_kernel_checks(torch, np, device, card) if cuda else {}
+    free(torch, device)
+    counts = {"tbl_dense": tbl_dense_path(torch, np, mv, device, card,
+                                          workdir, profile_dir, R, TBL_COLS)}
+    free(torch, device)
+    for rule, updater_type in (("default", None),) + tuple(
+            (suffix, ut) for suffix, ut, _ in TBL_RULES):
+        counts.update(tbl_sparse_paths(torch, np, mv, device, card, workdir,
+                                       profile_dir, R, TBL_COLS, rule,
+                                       updater_type))
+        free(torch, device)
+    for path, entries in checks.items():
+        for entry in entries:
+            entry["path"] = path
+            results.append(entry)
+    for updater_type in ("default", "momentum_sgd", "adagrad", "dcasgd"):
+        got = tbl_small_sequence(torch, np, mv, device, updater_type)
+        ref = tbl_small_sequence(torch, np, mv, torch.device("cpu"),
+                                 updater_type)
+        if got.keys() != ref.keys():
+            raise AssertionError(f"small table sequence {updater_type}: "
+                                 f"{sorted(got)} vs {sorted(ref)}")
+        for key in ref:
+            if key.startswith("ids_"):
+                if not np.array_equal(got[key], ref[key]):
+                    raise AssertionError(f"small table sequence "
+                                         f"{updater_type}: {key} differ")
+            else:
+                np.testing.assert_allclose(
+                    got[key], ref[key], rtol=1e-4, atol=1e-6,
+                    err_msg=f"small table sequence {updater_type} {key}")
+        log(f"[small input] table sequence {updater_type}: card vs CPU "
+            f"plain path: {len(ref)} arrays (ids, values, table, state) "
+            f"agree (ids exactly, the rest rtol 1e-4 / atol 1e-6)")
+    return results, counts
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--cpu-rehearsal", action="store_true",
@@ -2004,8 +2557,9 @@ def main(argv=None) -> int:
                           small_run(torch, mv, device, workdir),
                           small_run(torch, mv, torch.device("cpu"),
                                     workdir))
-        # Phases 6-9 (the local pipeline, the PS pipeline's other
-        # configurations, the host-batch trainer, logistic regression):
+        # Phases 6-10 (the local pipeline, the PS pipeline's other
+        # configurations, the host-batch trainer, logistic regression,
+        # the table data plane):
         # the PS tables go first; each phase frees its models before the
         # next.
         del model, trainer
@@ -2018,7 +2572,10 @@ def main(argv=None) -> int:
                   lambda: run_hostbatch_phase(torch, np, mv, *common),
                   lambda: run_logreg_phase(torch, np, mv, device, card,
                                            workdir, args.profile,
-                                           rehearsal))
+                                           rehearsal),
+                  lambda: run_table_phase(torch, np, mv, device, card,
+                                          workdir, args.profile,
+                                          rehearsal))
         for number, phase in enumerate(phases, 6):
             t0 = time.perf_counter()
             phase_results, phase_counts = phase()

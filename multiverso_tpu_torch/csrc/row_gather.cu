@@ -16,15 +16,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "row_common.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;  // 8 warps, 8 rows per block
-
-__device__ __forceinline__ int64_t wrap_id(int32_t raw, int64_t rows) {
-  int64_t id = raw;
-  if (id < 0) id += rows;
-  return (id >= 0 && id < rows) ? id : -1;
-}
 
 __global__ void row_gather_vec4(const float* __restrict__ data, int64_t rows,
                                 int64_t stride,

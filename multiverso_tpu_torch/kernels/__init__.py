@@ -22,6 +22,10 @@ sparse_lr_forward  ``logreg.py``             ``make_sparse_step`` forward
                                              (B15)
 sparse_lr_apply    ``logreg.py``             ``make_sparse_step`` gradient
                                              + the models' updates (B15)
+row_rule_apply     ``rules.py``              ``Momentum/AdaGrad/DCASGDRule.
+                                             rows`` via ``apply_rows`` (B12)
+rows_apply_gather  ``rules.py``              ``UpdateEngine.
+                                             apply_rows_gather`` (B3)
 =================  ========================  ============================
 
 A wrapper given a CUDA tensor launches its kernel (built at first use
@@ -39,6 +43,7 @@ from .logreg import sparse_lr_apply, sparse_lr_forward
 from .pair import pair_offset_grad
 from .pairlist import pairlist_hs_grad, pairlist_ns_grad
 from .rows import row_gather, row_scatter_add
+from .rules import row_rule_apply, rows_apply_gather
 from .sgns import banded_sgns_grad
 from .subsample import subsample_compact
 
@@ -55,6 +60,8 @@ WRAPPERS = {
     "pairlist_hs_grad": pairlist_hs_grad,
     "sparse_lr_forward": sparse_lr_forward,
     "sparse_lr_apply": sparse_lr_apply,
+    "row_rule_apply": row_rule_apply,
+    "rows_apply_gather": rows_apply_gather,
 }
 
 

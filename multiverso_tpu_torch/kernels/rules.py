@@ -1,0 +1,242 @@
+"""K13 row_rule_apply and K14 rows_apply_gather: the updater's row rules.
+
+``row_rule_apply`` (K13) replaces the stateful rules' row updates,
+``MomentumRule.rows``, ``AdaGradRule.rows`` and ``DCASGDRule.rows``
+(``multiverso_tpu/updater/rules.py:120-125, 144-151, 184-198``), as
+``UpdateEngine.apply_rows`` drives them; ``rows_apply_gather`` (K14)
+replaces ``UpdateEngine.apply_rows_gather``
+(``multiverso_tpu/updater/engine.py:155-193``): any rule's row update,
+then the rows ``get_ids`` gathered from the UPDATED table, in one
+cooperative launch.
+
+Both follow JAX's semantics: ids in [-R, -1] wrap, for the table and the
+state alike; every other out-of-range id (the pad sentinel R among them)
+is dropped and gathers a zero row. An id that repeats takes its step
+from the rows and state as they were before the call, every step lands
+on the table and the state row keeps the LAST occurrence's value. A
+worker at or past the state's slots reads zero state and its state
+writes are dropped. The delta ``[k, d]`` is zero-extended in rows; only
+its ``d`` columns are touched.
+
+``hyp`` is the ``AddOption.hyper_array()`` float32 ``[momentum, lr,
+rho, lambda]``. On a CUDA tensor each wrapper launches its kernel
+(``csrc/row_rules.cu``; both bound by bytes) after sorting the ids
+stably by row on the card (``segments``, no host sync), or raises; on a
+CPU tensor it runs the plain version beside it. ``row_rule_apply.
+launches`` and ``rows_apply_gather.launches`` count kernel launches.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from . import build
+from ._launch import is_plain, require, stream_of
+from .rows import _wrapped, row_gather_plain, row_scatter_add_plain
+
+#: The rule codes of ``csrc/row_rules.cu``.
+RULE_CODES = {"default": 0, "sgd": 1, "momentum": 2, "adagrad": 3,
+              "dcasgd": 4}
+STATEFUL = ("momentum", "adagrad", "dcasgd")
+ADAGRAD_EPS = 1e-6  # ref: adagrad_updater.h:18
+
+
+def safe_lr(lr) -> np.float32:
+    """``max(lr, 1e-12)`` in float32: the rules that recover the gradient
+    as delta/lr must not turn ``learning_rate=0`` into inf or NaN."""
+    return np.maximum(np.float32(lr), np.float32(1e-12))
+
+
+def scalar(value, like: torch.Tensor) -> torch.Tensor:
+    """A float32 0-d tensor on ``like``'s device. (A CUDA division by a
+    Python scalar may become a multiplication by its reciprocal.)"""
+    return torch.full((), float(np.float32(value)), dtype=torch.float32,
+                      device=like.device)
+
+
+def rule_step(rule: str, hyp, x0: torch.Tensor, s0: torch.Tensor,
+              dv: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(step subtracted from the table, new state) of a stateful rule,
+    elementwise, in the reference's expression order."""
+    m, lr, rho, lam = (np.float32(v) for v in hyp)
+    if rule == "momentum":
+        smooth = scalar(m, dv) * s0 + scalar(np.float32(1) - m, dv) * dv
+        return smooth, smooth
+    grad = dv / scalar(safe_lr(lr), dv)
+    if rule == "adagrad":
+        g_sqr = s0 + grad * grad
+        step = scalar(rho, dv) * grad * torch.rsqrt(
+            g_sqr + scalar(ADAGRAD_EPS, dv))
+        return step, g_sqr
+    step = dv + scalar(lr, dv) * scalar(lam, dv) * grad * grad * (x0 - s0)
+    return step, x0 - step
+
+
+def _check_state(rule: str, state, stateful: bool = False) -> None:
+    """A stateful rule comes with its state, a stateless one keeps none;
+    K13 (``stateful``) takes only the stateful rules — K3 adds the
+    others' rows."""
+    if rule not in (STATEFUL if stateful else RULE_CODES):
+        raise ValueError(f"rule {rule!r}: expected one of "
+                         f"{STATEFUL if stateful else tuple(RULE_CODES)}")
+    if (rule in STATEFUL) != (state is not None):
+        raise ValueError(f"rule {rule!r} with state {state is not None}")
+
+
+def _check_rows(data, ids, delta) -> None:
+    if delta.dim() != 2 or delta.shape[0] > ids.numel():
+        raise ValueError(f"delta {tuple(delta.shape)} needs [k, d] with "
+                         f"k <= {ids.numel()} ids")
+    if data.dim() != 2 or delta.shape[1] > data.shape[1]:
+        raise ValueError(f"delta width {delta.shape[1]} exceeds the table "
+                         f"width {data.shape[1]}")
+
+
+def _state_rows(rule: str, state: torch.Tensor, worker_id: int):
+    """The state a worker's rows read and write: momentum's table-shaped
+    state, the worker's slot of a per-worker state, or None for a worker
+    past the slots (reads zero, writes dropped)."""
+    if rule == "momentum":
+        return state
+    return state[worker_id] if worker_id < state.shape[0] else None
+
+
+def row_rule_apply_plain(rule: str, data: torch.Tensor,
+                         state: torch.Tensor, ids: torch.Tensor,
+                         delta: torch.Tensor, hyp,
+                         worker_id: int) -> None:
+    """Plain version of K13, in place on ``data`` and ``state``."""
+    _check_state(rule, state, stateful=True)
+    _check_rows(data, ids, delta)
+    k, d = delta.shape
+    flat, ok = _wrapped(ids, data.shape[0])
+    n = flat.numel()
+    dv = torch.zeros((n, d), dtype=data.dtype, device=data.device)
+    dv[:k] = delta
+    safe = torch.where(ok, flat, 0)
+    zero = torch.zeros((), dtype=data.dtype, device=data.device)
+    x0 = torch.where(ok[:, None], data.index_select(0, safe)[:, :d], zero)
+    rows_state = _state_rows(rule, state, worker_id)
+    s0 = torch.zeros_like(x0) if rows_state is None else torch.where(
+        ok[:, None], rows_state.index_select(0, safe)[:, :d], zero)
+    step, s_new = rule_step(rule, hyp, x0, s0, dv)
+    data[:, :d].index_add_(0, flat[ok], -step[ok])
+    if rows_state is None:
+        return
+    # The state row keeps its last occurrence's value.
+    pos = torch.arange(n, device=data.device)[ok]
+    target = flat[ok]
+    last = torch.full((data.shape[0],), -1, dtype=torch.int64,
+                      device=data.device)
+    last.scatter_reduce_(0, target, pos, "amax")
+    keep = last[target] == pos
+    rows_state[:, :d].index_copy_(0, target[keep], s_new[pos[keep]])
+
+
+def segments(ids: torch.Tensor, rows: int
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(wrapped ids sorted stably, their positions): each row's run of
+    occurrences in position order, on the ids' device (no host sync).
+    Ids out of range keep a key outside [0, rows) and are skipped."""
+    flat = ids.reshape(-1)
+    keys = torch.where(flat < 0, flat + rows, flat)
+    return torch.sort(keys, stable=True)
+
+
+def _launch_args(rule: str, data, state, ids, delta, hyp, worker_id):
+    m, lr, rho, lam = (float(np.float32(v)) for v in hyp)
+    require(data, "data", torch.float32, data.device, 2)
+    require(ids, "ids", torch.int32, data.device)
+    require(delta, "delta", torch.float32, data.device, 2)
+    workers = 0
+    if state is not None:
+        require(state, "state", torch.float32, data.device,
+                2 if rule == "momentum" else 3)
+        if tuple(state.shape[-2:]) != tuple(data.shape):
+            raise ValueError(f"state {tuple(state.shape)} does not match "
+                             f"the table {tuple(data.shape)}")
+        workers = 1 if rule == "momentum" else state.shape[0]
+    return (RULE_CODES[rule], data.data_ptr(), data.shape[0],
+            data.stride(0), None if state is None else state.data_ptr(),
+            workers, min(int(worker_id), 2 ** 31 - 1)), \
+        (m, lr, rho, lam)
+
+
+def row_rule_apply(rule: str, data: torch.Tensor, state: torch.Tensor,
+                   ids: torch.Tensor, delta: torch.Tensor, hyp,
+                   worker_id: int) -> None:
+    """K13: a stateful rule's row update of ``data`` [R, S] and its
+    ``state`` (momentum ``[R, S]``, adagrad and dcasgd ``[W, R, S]``) in
+    place, for the int32 ``ids`` [n] and the delta [k, d], k <= n,
+    d <= S."""
+    _check_state(rule, state, stateful=True)
+    _check_rows(data, ids, delta)
+    if is_plain(data):
+        row_rule_apply_plain(rule, data, state, ids, delta, hyp, worker_id)
+        return
+    head, hyp4 = _launch_args(rule, data, state, ids, delta, hyp, worker_id)
+    keys, order = segments(ids, data.shape[0])
+    lib = build.library()
+    build.check(lib.mv_row_rule_apply(
+        *head, keys.data_ptr(), order.data_ptr(), keys.numel(),
+        delta.data_ptr(), delta.shape[0], delta.shape[1], *hyp4,
+        stream_of(data)), "row_rule_apply")
+    row_rule_apply.launches += 1
+
+
+row_rule_apply.launches = 0
+
+
+def rows_apply_gather_plain(rule: str, data: torch.Tensor,
+                            state: Optional[torch.Tensor], ids: torch.Tensor,
+                            delta: torch.Tensor, hyp, worker_id: int,
+                            get_ids: torch.Tensor,
+                            n_col: int) -> torch.Tensor:
+    """Plain version of K14: the rule's row update (K3's or K13's plain
+    version), then ``row_gather_plain`` of the updated table."""
+    if rule in STATEFUL:
+        row_rule_apply_plain(rule, data, state, ids, delta, hyp, worker_id)
+    else:
+        _check_rows(data, ids, delta)
+        row_scatter_add_plain(data, ids, delta,
+                              -1.0 if rule == "sgd" else 1.0)
+    return row_gather_plain(data, get_ids, n_col)
+
+
+def rows_apply_gather(rule: str, data: torch.Tensor,
+                      state: Optional[torch.Tensor], ids: torch.Tensor,
+                      delta: torch.Tensor, hyp, worker_id: int,
+                      get_ids: torch.Tensor, n_col: int) -> torch.Tensor:
+    """K14: ``rule``'s row update of ``data`` (and ``state``) in place,
+    then ``data[get_ids, :n_col]`` of the updated table as a new
+    ``[len(get_ids), n_col]`` tensor — one cooperative launch with a
+    grid-wide barrier between the two."""
+    _check_state(rule, state)
+    _check_rows(data, ids, delta)
+    if not 0 < n_col <= data.shape[1]:
+        raise ValueError(f"n_col {n_col} outside (0, {data.shape[1]}]")
+    if is_plain(data):
+        return rows_apply_gather_plain(rule, data, state, ids, delta, hyp,
+                                       worker_id, get_ids, n_col)
+    head, hyp4 = _launch_args(rule, data, state, ids, delta, hyp, worker_id)
+    require(get_ids, "get_ids", torch.int32, data.device)
+    keys = order = None
+    if rule in STATEFUL:
+        keys, order = segments(ids, data.shape[0])
+    out = torch.empty((get_ids.numel(), n_col), dtype=torch.float32,
+                      device=data.device)
+    lib = build.library()
+    build.check(lib.mv_rows_apply_gather(
+        *head, ids.data_ptr(), None if keys is None else keys.data_ptr(),
+        None if order is None else order.data_ptr(), ids.numel(),
+        delta.data_ptr(), delta.shape[0], delta.shape[1], *hyp4,
+        get_ids.data_ptr(), get_ids.numel(), out.data_ptr(), n_col,
+        stream_of(data)), "rows_apply_gather")
+    rows_apply_gather.launches += 1
+    return out
+
+
+rows_apply_gather.launches = 0

@@ -15,8 +15,9 @@ preserved:
   read each other's checkpoints.
 
 Each server shard is one 1-D ``torch.Tensor`` on the zoo's device,
-updated in place by the dense rule (default ``+=``, sgd ``-=``) through
-the updater engine; replies and snapshots are clones of it. A tensor
+updated in place by the dense rule (default ``+=``, sgd ``-=``, or a
+stateful rule whose state lives beside it) through the updater engine;
+replies and snapshots are clones of it. A tensor
 delta rides the whole stack without touching the host, and
 ``get_device`` returns the table as a tensor on the zoo's device. The
 reference's whole-blob client cache (``prefetch_async``) belongs to
@@ -153,7 +154,8 @@ class ArrayServer(ServerTable):
         rule = None if updater_type is None \
             else create_rule(updater_type, dtype)
         self._engine = UpdateEngine(rule, (padded,), self.dtype,
-                                    max(self._zoo.num_workers, 1))
+                                    max(self._zoo.num_workers, 1),
+                                    self._zoo.device)
         # Only a stateless rule lets fused adds fold deltas before one
         # apply (the MatrixServer precedent).
         self._updater_stateless = self._engine.rule.stateless

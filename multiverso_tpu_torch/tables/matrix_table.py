@@ -8,7 +8,8 @@ variant (ref: src/table/sparse_matrix_table.cpp). Semantics preserved:
 - row-range partition: each server owns ``num_row/num_servers`` rows,
   the last takes the remainder (ref: matrix_table.cpp:23-45);
 - request keys: sentinel -1 = whole table, else an int32 row-id vector
-  (ref: matrix_table.cpp:267-276);
+  (ref: matrix_table.cpp:267-276); the sparse tables' device protocols
+  add -2 (dirty rows, device reply) and -4 (fused add + dirty rows);
 - whole-table Get replies carry ``[keys, values, server_id]``; row Gets
   reply ``[row_ids, values]`` (ref: matrix_table.cpp:317-341, 420-454);
 - DEVICE keys: a ``torch.Tensor`` of row ids (any shape, duplicates
@@ -33,13 +34,17 @@ variant (ref: src/table/sparse_matrix_table.cpp). Semantics preserved:
 
 Each server shard is one ``torch.Tensor`` on the zoo's device. Row Gets
 run on the row gather kernel (K2) and row Adds on the row scatter-add
-kernel (K3) through the updater engine; the table is updated in place
-(the reference donates its buffers to XLA instead). The sparse tables'
-device-reply dirty Get (``get_dirty_device``, the ``-2`` sentinel) and
-fused add + dirty Get (``add_get_dirty_device``, ``-4``, on B3) and
-the segmented device protocol are later items of the port (ROADMAP A6,
-B3, B11). The reference compresses sparse traffic only on a wire, which
-comes with the multi-process transport (A9).
+kernel (K3, stateless rules) or the row rule kernel (K13, stateful
+rules) through the updater engine; the table is updated in place (the
+reference donates its buffers to XLA instead). Device replies stay on
+the card: ``get_device`` (a dense whole-table Get, a clone of the
+table), the sparse tables' ``get_dirty_device`` (``-2``: host dirty
+ids, rows gathered by K2) and ``add_get_dirty_device`` (``-4``: a row
+add and the dirty Get in one launch of K14, for one in-process
+server). The segmented device protocol (``-3``, B11) and the
+multi-server bounded forms (B1, B2) are later items of the port. The
+reference compresses sparse traffic only on a wire, which comes with
+the multi-process transport (A9).
 """
 
 from __future__ import annotations
@@ -55,12 +60,22 @@ from ..core.message import MsgType
 from ..kernels.rows import row_gather
 from ..sharding import mesh as meshlib
 from ..updater import AddOption, GetOption, UpdateEngine, create_rule
-from ..updater.engine import pad_ids
+from ..updater.engine import bucket_size, pad_ids
+from ..util.configure import define_bool, get_flag
 from ..util.log import CHECK
 from .client_cache import place_rows
 from .table_interface import ServerTable, WorkerTable
 
+define_bool("verify_device_ids", False,
+            "read back a fused add's device row-id mirror on its first "
+            "use and CHECK it against the host ids")
+
 _ALL_KEY = np.array([-1], dtype=np.int32)
+# Sparse dirty-row Get whose values reply on the device (host ids).
+_ALL_KEY_DEVICE_REPLY = np.array([-2], dtype=np.int32)
+# Fused sparse add + dirty-row Get, one in-process server: a Get whose
+# blobs are [-4, rows, delta, add option, get option(, device rows)].
+_ADD_GET_DIRTY_KEY = np.array([-4], dtype=np.int32)
 
 
 def row_offsets(num_row: int, num_servers: int) -> List[int]:
@@ -114,6 +129,11 @@ class MatrixWorker(WorkerTable):
         self.num_col = int(num_col)
         self.dtype = np.dtype(dtype)
         self.is_sparse = bool(is_sparse)
+        # Consumer-slot count, mirroring the server's bitmap height, so
+        # a bad consumer id fails in the caller instead of hanging on a
+        # reply the server actor never sends.
+        self._num_consumers = max(self._zoo.num_workers, 1) \
+            * (2 if is_pipeline else 1)
         # Device-key row adds may carry duplicate ids, which only sum
         # correctly under stateless rules: validate in the CALLER's
         # thread (a CHECK inside the server actor would only be logged).
@@ -128,6 +148,9 @@ class MatrixWorker(WorkerTable):
         self._dest: Optional[np.ndarray] = None
         self._dest_rows: Optional[np.ndarray] = None
         self._device_shards: Optional[Dict[int, torch.Tensor]] = None
+        # Host ids of each server's device dirty-row reply (-2, -4).
+        self._device_shard_ids: Optional[Dict[int, np.ndarray]] = None
+        self._mirror_verified = False  # -verify_device_ids: once a table
 
     def _server_of_rows(self, rows: np.ndarray) -> np.ndarray:
         return np.minimum(rows // self._row_length, self._num_server - 1)
@@ -226,21 +249,123 @@ class MatrixWorker(WorkerTable):
         return self.get_async_raw(keys, extra)
 
     def get_dirty_device(self):
-        """The sparse dirty-row Get with a device reply (the ``-2``
-        sentinel): not ported yet."""
-        raise NotImplementedError(
-            "get_dirty_device (the -2 device-reply dirty Get) is not "
-            "ported yet (ROADMAP A6)")
+        """Sparse dirty-row pull with a device reply: ``(row_ids,
+        values)``, the ids on the host (the staleness bookkeeping is a
+        host bitmap) and the values ``[k, num_col]`` on the table's
+        device — the reference's dirty-only Get (ref:
+        sparse_matrix_table.cpp:226-258) without the host copy."""
+        CHECK(self.is_sparse, "dirty gets are for sparse tables")
+        CHECK(self._zoo.servers_in_process,
+              "device dirty gets need the servers in this process "
+              "(the reply payload is a live device tensor)")
+        self._begin_dirty_reply()
+        self.wait(self._request_get(
+            Blob(_ALL_KEY_DEVICE_REPLY.view(np.uint8))))
+        shards, ids = self._end_dirty_reply()
+        CHECK(len(shards) == self._num_server,
+              "dirty get: one reply per server")
+        order = sorted(shards)
+        if len(order) == 1:
+            return ids[order[0]], shards[order[0]]
+        # Each server's dirty set is sorted within its own row range, so
+        # server order is global order.
+        return (np.concatenate([ids[sid] for sid in order]),
+                torch.cat([shards[sid] for sid in order]))
 
     def add_get_dirty_device(self, row_ids, delta,
                              option: Optional[AddOption] = None,
                              get_worker: Optional[int] = None,
                              row_ids_device=None):
-        """The fused sparse add + dirty Get (the ``-4`` sentinel): not
-        ported yet."""
-        raise NotImplementedError(
-            "add_get_dirty_device (the -4 fused add + dirty Get) is not "
-            "ported yet (ROADMAP B3)")
+        """FUSED add + dirty pull: apply a row delta, then return the
+        dirty rows of consumer ``get_worker`` (default: this worker) —
+        the exact composition of ``add_rows`` and ``get_dirty_device``,
+        as one request and one launch on the server (K14). One
+        in-process server, async mode (a hidden add inside a Get would
+        bypass the BSP clocks). ``option`` names the adder as usual.
+
+        ``row_ids_device``: an optional device mirror of ``row_ids``,
+        bucket-padded (``pad_ids(row_ids, num_row)`` on the table's
+        device), which the server scatters with instead of uploading the
+        host ids; stateless updaters only, as with device-key adds."""
+        CHECK(self.is_sparse, "fused add+dirty-get is for sparse tables")
+        CHECK(self._num_server == 1 and self._zoo.servers_in_process,
+              "fused add+dirty-get is a single-server extension with "
+              "the server in this process (multi-server callers "
+              "compose add_rows + get_dirty_device)")
+        CHECK(not bool(get_flag("sync", False)),
+              "fused add+dirty-get is async-only: the embedded add "
+              "would bypass the BSP vector clocks")
+        row_ids = np.ascontiguousarray(row_ids, dtype=np.int32).reshape(-1)
+        self._check_row_ids(row_ids)
+        CHECK(is_device_array(delta), "fused add needs a device delta")
+        CHECK(tuple(delta.shape) == (row_ids.size, self.num_col),
+              "bad delta shape")
+        if get_worker is None:
+            get_worker = max(self._zoo.worker_id, 0)
+        CHECK(0 <= int(get_worker) < self._num_consumers,
+              "get_worker out of the consumer-slot range (the "
+              "server-side CHECK would fire inside the actor and the "
+              "caller would hang)")
+        blobs = [Blob(_ADD_GET_DIRTY_KEY.view(np.uint8)),
+                 Blob(row_ids.view(np.uint8)), Blob(delta),
+                 self._option_blob(option),
+                 GetOption(int(get_worker)).to_blob()]
+        if row_ids_device is not None:
+            self._check_mirror(row_ids, row_ids_device)
+            blobs.append(Blob(row_ids_device))
+        self._begin_dirty_reply()
+        self.wait(self.get_async_raw(blobs[0], blobs[1:]))
+        shards, ids = self._end_dirty_reply()
+        CHECK(len(shards) == 1, "fused dirty get: one reply")
+        return ids[0], shards[0]
+
+    def _check_mirror(self, row_ids: np.ndarray, mirror) -> None:
+        """The device mirror of the add ids: ``[bucket_size(k)]`` int32,
+        a stateless rule; with ``-verify_device_ids`` its first use is
+        read back and compared with the host ids."""
+        CHECK(is_device_array(mirror),
+              "row_ids_device must be a device tensor")
+        bucket = bucket_size(row_ids.size)
+        CHECK(tuple(mirror.shape) == (bucket,)
+              and mirror.dtype == torch.int32,
+              "row_ids_device must mirror row_ids padded to the host "
+              "bucket ([bucket_size(k)] int32; build it as "
+              "torch.from_numpy(pad_ids(row_ids, num_row)) on the "
+              "table's device)")
+        CHECK(self._updater_stateless,
+              "device-id fused adds need a stateless updater")
+        if get_flag("verify_device_ids") and not self._mirror_verified:
+            # A mirror that disagrees with the host ids would mark one
+            # row set dirty and scatter the delta at another.
+            host = mirror.cpu().numpy()
+            CHECK(np.array_equal(host[:row_ids.size], row_ids),
+                  "-verify_device_ids: row_ids_device disagrees with the "
+                  "host row ids")
+            CHECK(row_ids.size == bucket
+                  or int(host[row_ids.size:].min()) >= self.num_row,
+                  "-verify_device_ids: mirror padding ids must be "
+                  ">= num_row (in-range padding would scatter into live "
+                  "rows)")
+            self._mirror_verified = True
+
+    def _begin_dirty_reply(self) -> None:
+        self._dest, self._dest_rows = None, None
+        self._device_shards, self._device_shard_ids = {}, {}
+
+    def _end_dirty_reply(self):
+        shards, ids = self._device_shards, self._device_shard_ids
+        self._device_shards, self._device_shard_ids = None, None
+        return shards, ids
+
+    def get_device(self) -> torch.Tensor:
+        """Dense whole-table Get returning a tensor ``[num_row,
+        num_col]`` on the table's device: the servers' reply clones, in
+        server order."""
+        CHECK(not self.is_sparse,
+              "device get is for dense tables (sparse replies are ragged)")
+        self._dest, self._dest_rows, self._device_shards = None, None, {}
+        self.wait(self._request_get(Blob(_ALL_KEY.view(np.uint8))))
+        return self.take_device_rows()
 
     def take_device_rows(self) -> torch.Tensor:
         """Assembled result of the last ``get_rows_device_async`` (call
@@ -326,9 +451,20 @@ class MatrixWorker(WorkerTable):
             return {sid: list(blobs) for sid in range(self._num_server)}
         keys = blobs[0].as_array(np.int32)
         out: Dict[int, List[Blob]] = {}
+        if keys.size == 1 and keys[0] == -4 \
+                and msg_type == MsgType.Request_Get:
+            # The fused add + dirty Get is a Get: one server (the caller
+            # CHECKs it) takes the whole blob list. A Request_Add with -4
+            # falls through to the fail-fast below.
+            CHECK(self._num_server == 1 and len(blobs) in (5, 6),
+                  "fused add+dirty-get: [marker, rows, delta, "
+                  "add_option, get_option(, device rows)] to one server")
+            return {0: list(blobs)}
         if keys.size == 1 and keys[0] < 0:
-            CHECK(keys[0] == -1,
-                  "negative key must be the whole-table sentinel (-1)")
+            # Only the defined sentinels may go negative: a stray negative
+            # row id must fail here, not fan out as a whole-table request.
+            CHECK(keys[0] in (-1, -2),
+                  "negative key must be a whole-table sentinel (-1/-2)")
             is_add = msg_type == MsgType.Request_Add
             values = blobs[1].typed(self.dtype) if is_add else None
             # Values may arrive flat [R*C] (host callers) or row-shaped
@@ -395,6 +531,10 @@ class MatrixWorker(WorkerTable):
         keys = reply_blobs[0].as_array(np.int32)
         if keys.size == 1 and keys[0] == -1:
             server_id = int(reply_blobs[2].as_array(np.int32)[0])
+            if self._device_shards is not None:  # get_device
+                self._device_shards[server_id] = \
+                    reply_blobs[1].typed(self.dtype)
+                return
             CHECK(self._dest is not None,
                   "Get reply with no outstanding destination — only one "
                   "Get may be in flight per table (as in the reference)")
@@ -404,11 +544,19 @@ class MatrixWorker(WorkerTable):
             return
         if self._device_shards is not None:
             # Host-key device pull: keep the server's gather on the card,
-            # keyed by the owning server (one contiguous key segment).
-            sid = 0 if keys.size == 0 else \
-                int(min(keys[0] // self._row_length, self._num_server - 1))
+            # keyed by the owning server (one contiguous key segment). A
+            # dirty-row reply ([ids, values, server_id]) may hold ZERO
+            # rows, so it names its server.
+            if len(reply_blobs) >= 3:
+                sid = int(reply_blobs[2].as_array(np.int32)[0])
+            else:
+                sid = 0 if keys.size == 0 else \
+                    int(min(keys[0] // self._row_length,
+                            self._num_server - 1))
             self._device_shards[sid] = reply_blobs[1].typed(
                 self.dtype).reshape(keys.size, self.num_col)
+            if self._device_shard_ids is not None:
+                self._device_shard_ids[sid] = keys
             return
         values = reply_blobs[1].as_array(self.dtype).reshape(
             keys.size, self.num_col)
@@ -465,7 +613,7 @@ class MatrixServer(ServerTable):
                 torch.from_numpy(values).to(device)
         num_workers = max(self._zoo.num_workers, 1)
         self._engine = UpdateEngine(rule, (padded, self._col_store),
-                                    self.dtype, num_workers)
+                                    self.dtype, num_workers, device)
         self._updater_stateless = self._engine.rule.stateless
         # Sparse staleness bitmap: one slot per logical consumer;
         # pipelined workers count twice (ref: sparse_matrix_table.cpp:
@@ -473,6 +621,9 @@ class MatrixServer(ServerTable):
         consumers = num_workers * (2 if is_pipeline else 1)
         self._up_to_date = np.zeros((consumers, self.my_rows), dtype=bool) \
             if is_sparse else None
+        # The last dirty set of the fused path and its padded device id
+        # vector: an unchanged set reuses it instead of uploading again.
+        self._dirty_dev_cache: Optional[tuple] = None
 
     # -- Add (ref: matrix_table.cpp:386-418)
     def process_add(self, blobs: List[Blob]) -> None:
@@ -532,9 +683,17 @@ class MatrixServer(ServerTable):
                                               self.num_col)),
                     Blob(np.array([self.server_id], dtype=np.int32))]
         keys = blobs[0].as_array(np.int32)
+        if keys.size == 1 and keys[0] == -4:
+            return self._fused_add_get_dirty(blobs)
+        if keys.size == 1 and keys[0] == -2:
+            CHECK(self._up_to_date is not None and len(blobs) >= 2,
+                  "-2 sentinel is the sparse dirty device-reply get")
+            return self._sparse_get_all_device(GetOption.from_blob(blobs[1]))
         if keys.size == 1 and keys[0] == -1:
             if self._up_to_date is not None and len(blobs) >= 2:
                 return self._sparse_get_all(GetOption.from_blob(blobs[1]))
+            # A clone of the table: the host Get copies it off the card,
+            # get_device keeps it there.
             return [blobs[0], Blob(self._values()),
                     Blob(np.array([self.server_id], dtype=np.int32))]
         values = self._gather_rows(keys)
@@ -557,7 +716,54 @@ class MatrixServer(ServerTable):
         return [Blob(dirty + self.row_offset), Blob(self._gather_rows(
             dirty + self.row_offset))]
 
+    def _sparse_get_all_device(self, opt: GetOption) -> List[Blob]:
+        """-2: the dirty rows with the values left on the card (host ids,
+        device payload). The server id rides along: a server with ZERO
+        dirty rows replies an empty id vector, which the worker could
+        not attribute by key range."""
+        dirty = self._dirty_ids(opt.worker_id)
+        return [Blob(dirty + self.row_offset),
+                Blob(self._gather_rows(dirty + self.row_offset)),
+                Blob(np.array([self.server_id], dtype=np.int32))]
+
+    def _fused_add_get_dirty(self, blobs: List[Blob]) -> List[Blob]:
+        """-4: apply a row add, then reply the get-worker's dirty rows
+        gathered from the UPDATED table, in one launch (K14) — the exact
+        composition of a row ``process_add`` and
+        ``_sparse_get_all_device``, sharing their bookkeeping. The caller
+        may ship a bucket-padded device mirror of the add ids (blob 5)."""
+        CHECK(self._up_to_date is not None and len(blobs) in (5, 6),
+              "-4 is the fused sparse add+dirty-get")
+        rows = blobs[1].as_array(np.int32)
+        delta = blobs[2].typed(self.dtype)
+        add_opt = AddOption.from_blob(blobs[3])
+        get_opt = GetOption.from_blob(blobs[4])
+        local = rows - self.row_offset
+        self._mark_dirty(local, add_opt)
+        dirty = self._dirty_ids(get_opt.worker_id)
+        if len(blobs) == 6:
+            # One server owns row offset 0: global ids are local ids.
+            add_ids = blobs[5].typed(np.int32)
+        else:
+            add_ids = pad_ids(local, self._data.shape[0])
+        cached = self._dirty_dev_cache
+        if cached is not None and np.array_equal(cached[0], dirty):
+            get_ids = cached[1]
+        else:
+            get_ids = torch.from_numpy(pad_ids(
+                dirty, self._data.shape[0])).to(self._data.device)
+            self._dirty_dev_cache = (dirty, get_ids)
+        self._data, values = self._engine.apply_rows_gather(
+            self._data, add_ids, delta.reshape(rows.size, self.num_col),
+            add_opt, get_ids, self.num_col)
+        return [Blob(dirty + self.row_offset),
+                Blob(_trim_rows(values, dirty.size)),
+                Blob(np.array([self.server_id], dtype=np.int32))]
+
     def _dirty_ids(self, wid: int) -> np.ndarray:
+        """The consumer's dirty row set, flipped clean on read: the ONE
+        copy of the bookkeeping the composed and fused dirty paths share,
+        so they cannot diverge."""
         CHECK(0 <= wid < self._up_to_date.shape[0], "bad worker id")
         dirty = np.nonzero(~self._up_to_date[wid])[0].astype(np.int32)
         self._up_to_date[wid, dirty] = True

@@ -9,9 +9,9 @@ rebinds to the returned tensor, which is the same object).
 Row calls keep the reference's bucket contract: host row ids pad to a
 power-of-two bucket with the out-of-range sentinel (``pad_ids`` /
 ``pad_rows``, unchanged), so the ids on the wire and in the API have
-the same shapes in both packages; the row scatter-add kernel drops the
-sentinel, zero-extends the delta in columns and rows, and sums
-duplicates.
+the same shapes in both packages; the row kernels (K3 for the stateless
+rules, K13 for the stateful ones, K14 for the fused update + gather)
+drop the sentinel and zero-extend the delta in columns and rows.
 """
 
 from __future__ import annotations
@@ -48,30 +48,37 @@ class UpdateEngine:
     """Applies a rule to a table's storage tensor, in place."""
 
     def __init__(self, rule: Optional[UpdaterRule], shape, dtype,
-                 num_workers: int):
+                 num_workers: int, device=None):
         self.rule = rule if rule is not None else create_rule(dtype=dtype)
         self.shape = tuple(shape)
         self.dtype = np.dtype(dtype)
+        # Optimizer state lives on the table's device, shaped like the
+        # storage (with a leading worker axis for adagrad and dcasgd).
         self._state = self.rule.init_state(self.shape, self.dtype,
-                                           num_workers)
+                                           num_workers, device)
 
     def apply_dense(self, data: torch.Tensor, delta,
                     option: Optional[AddOption] = None) -> torch.Tensor:
         """Whole-shard update; ``delta`` covers the logical rows and
-        columns (a 1-D shard: the logical elements) and is zero-extended
-        to the storage shape (the padding adds zero, so only the logical
-        block is touched)."""
+        columns (a 1-D shard: the logical elements). The reference
+        zero-extends it to the storage shape; the rule runs on the
+        logical block of the table and of its state instead, which is
+        the same: the padding holds zeros in both and a zero delta
+        leaves it so under every rule."""
         hyp, worker_id = _unpack(option)
         delta = _on(delta, data.device)
         if data.dim() == 1:
-            size = delta.numel()
-            self.rule.dense(data[:size], self._state, delta.reshape(size),
-                            hyp, worker_id)
-            return data
-        rows, cols = delta.shape[0], delta.shape[-1]
-        view = data[:rows, :cols]
-        self.rule.dense(view, self._state, delta.reshape(rows, cols), hyp,
-                        worker_id)
+            block = (slice(0, delta.numel()),)
+            delta = delta.reshape(-1)
+        else:
+            rows, cols = delta.shape[0], delta.shape[-1]
+            block = (slice(0, rows), slice(0, cols))
+            delta = delta.reshape(rows, cols)
+        state = self._state
+        if state is not None:
+            lead = (slice(None),) * (state.dim() - data.dim())
+            state = state[lead + block]
+        self.rule.dense(data[block], state, delta, hyp, worker_id)
         return data
 
     def apply_rows(self, data: torch.Tensor, row_ids, delta,
@@ -96,6 +103,28 @@ class UpdateEngine:
         self.rule.rows(data, self._state, ids.reshape(-1),
                        delta.contiguous(), hyp, worker_id)
         return data
+
+    def apply_rows_gather(self, data: torch.Tensor, row_ids, delta,
+                          option: Optional[AddOption], get_ids,
+                          n_col: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """FUSED row update + row gather in ONE launch (K14): apply the
+        delta, then gather ``get_ids`` from the UPDATED table. Returns
+        (data, values ``[len(get_ids), n_col]``). Both id vectors arrive
+        padded to power-of-two buckets (out-of-range ids drop or gather
+        zeros), as in the reference, which compiles one program a
+        bucket width; the add ids' padding is CHECKed as there."""
+        hyp, worker_id = _unpack(option)
+        k = int(np.shape(row_ids)[0])
+        CHECK(k == bucket_size(k),
+              "apply_rows_gather ids must be bucket-padded "
+              "(pad_ids on the host, a pad_ids-built device mirror)")
+        ids = _on(row_ids, data.device).to(torch.int32).reshape(-1)
+        gets = _on(get_ids, data.device).to(torch.int32).reshape(-1)
+        delta = _on(delta, data.device)
+        delta = delta.reshape(-1, delta.shape[-1]).contiguous()
+        values = self.rule.rows_gather(data, self._state, ids, delta, hyp,
+                                       worker_id, gets, n_col)
+        return data, values
 
     @property
     def state(self):

@@ -1,20 +1,34 @@
 """Server-side update rules over torch table storage.
 
 Port of ``multiverso_tpu/updater/rules.py`` (ref: include/multiverso/
-updater/, src/updater/updater.cpp:23-58) for the stateless rules the
-slice needs:
+updater/, src/updater/updater.cpp:23-58):
 
 - default: ``data += delta`` (ref: src/updater/updater.cpp:24-31)
 - sgd: ``data -= delta`` — the caller pre-multiplies the learning rate
   (ref: include/multiverso/updater/sgd_updater.h:15-19)
+- momentum: ``smooth = m*smooth + (1-m)*delta; data -= smooth``
+  (ref: include/multiverso/updater/momentum_updater.h:17-26)
+- adagrad: per-worker accumulator ``G[w] += (delta/lr)^2``;
+  ``data -= rho * (delta/lr) / sqrt(G[w] + e)`` — the intended AdaGrad
+  the reference's header describes, as the JAX package implements it
+- dcasgd: delay-compensated ASGD (Zheng et al. 2017) with a per-worker
+  parameter backup, the JAX package's working form of the hook the
+  reference ships disabled
 
 The reference's rules are pure functions whose storage XLA updates in
 place through buffer donation (``donate_argnums``,
 ``multiverso_tpu/updater/engine.py:83-84``); here each rule updates the
-table tensor IN PLACE and returns it. Row updates run on the row
-scatter-add kernel (K3, ``kernels/rows.py``): duplicate ids sum,
-out-of-range ids drop. The stateful rules (momentum, adagrad, dcasgd)
-are ROADMAP item B12 and raise ``NotImplementedError``.
+table tensor and its state IN PLACE. ``dense`` is elementwise torch;
+``rows`` runs the row scatter-add kernel (K3, ``kernels/rows.py``) for
+the stateless rules — duplicate ids sum, out-of-range ids drop — and
+K13 (``kernels/rules.py``) for the stateful ones, where every occurrence
+of a repeated id takes its step from the pre-update rows and state, the
+steps sum on the table and the state keeps the last occurrence.
+``rows_gather`` is the fused row update + gather of K14.
+
+A worker id at or past the per-worker state's slots: ``dense`` reads
+the last slot (JAX's clamped dynamic index) and ``rows`` reads zeros
+(``mode="fill"``); both drop the state write.
 """
 
 from __future__ import annotations
@@ -22,8 +36,14 @@ from __future__ import annotations
 from typing import Any, Optional
 
 import numpy as np
+import torch
 
 from ..kernels.rows import row_scatter_add
+from ..kernels.rules import ADAGRAD_EPS  # noqa: F401 (the reference's name)
+from ..kernels.rules import row_rule_apply, rows_apply_gather, rule_step
+from ..kernels.rules import safe_lr as _safe_lr
+from ..kernels.rules import scalar
+from ..sharding.mesh import torch_dtype
 from ..util import log
 from ..util.configure import define_string, get_flag
 
@@ -31,20 +51,18 @@ define_string("updater_type", "default",
               "server updater: default / sgd / momentum / adagrad / "
               "dcasgd")
 
-#: Stateful rules of the reference not ported yet (ROADMAP B12).
-UNPORTED_RULES = ("momentum", "momentum_sgd", "adagrad", "dcasgd")
-
 
 class UpdaterRule:
     """An update rule: (data, state, delta, hyp, worker_id) -> (data,
-    state), with ``data`` updated in place."""
+    state), with ``data`` and ``state`` updated in place."""
 
     name = "base"
     # True when init_state returns None — i.e. duplicate row ids in one
     # scatter-add SUM correctly.
     stateless = True
 
-    def init_state(self, shape, dtype, num_workers: int) -> Any:
+    def init_state(self, shape, dtype, num_workers: int,
+                   device=None) -> Any:
         return None
 
     def dense(self, data, state, delta, hyp, worker_id):
@@ -55,7 +73,16 @@ class UpdaterRule:
         out-of-range indices (>= data.shape[0]), which are dropped;
         ``delta`` [k, d] may have fewer rows than ids and fewer columns
         than the storage (zero extension)."""
-        raise NotImplementedError
+        row_rule_apply(self.name, data, state, row_ids, delta, hyp,
+                       worker_id)
+        return data, state
+
+    def rows_gather(self, data, state, row_ids, delta, hyp, worker_id,
+                    get_ids, n_col: int) -> torch.Tensor:
+        """``rows``, then ``data[get_ids, :n_col]`` of the updated table
+        (zero rows for out-of-range ids), in one launch (K14)."""
+        return rows_apply_gather(self.name, data, state, row_ids, delta,
+                                 hyp, worker_id, get_ids, n_col)
 
 
 class DefaultRule(UpdaterRule):
@@ -82,7 +109,78 @@ class SGDRule(UpdaterRule):
         return data, state
 
 
-_RULES = {cls.name: cls for cls in (DefaultRule, SGDRule)}
+def _per_worker_zeros(shape, dtype, num_workers: int, device):
+    return torch.zeros((num_workers,) + tuple(shape),
+                       dtype=torch_dtype(dtype), device=device)
+
+
+def _read_slot(state, worker_id: int):
+    """``state[worker_id]`` as JAX's dynamic index reads it: clamped."""
+    return state[min(worker_id, state.shape[0] - 1)]
+
+
+class MomentumRule(UpdaterRule):
+    name = "momentum"
+    stateless = False
+
+    def init_state(self, shape, dtype, num_workers: int, device=None):
+        return torch.zeros(tuple(shape), dtype=torch_dtype(dtype),
+                           device=device)
+
+    def dense(self, data, state, delta, hyp, worker_id):
+        step, smooth = rule_step(self.name, hyp, data, state, delta)
+        data -= step
+        state.copy_(smooth)
+        return data, state
+
+
+class AdaGradRule(UpdaterRule):
+    name = "adagrad"
+    stateless = False
+
+    def init_state(self, shape, dtype, num_workers: int, device=None):
+        # Per-worker historic squared gradients, leading worker axis
+        # (ref: adagrad_updater.h:17-21).
+        return _per_worker_zeros(shape, dtype, num_workers, device)
+
+    def dense(self, data, state, delta, hyp, worker_id):
+        step, g_sqr = rule_step(self.name, hyp, data,
+                                _read_slot(state, worker_id), delta)
+        data -= step
+        if worker_id < state.shape[0]:
+            state[worker_id].copy_(g_sqr)
+        return data, state
+
+
+class DCASGDRule(UpdaterRule):
+    """Delay-compensated ASGD: a delta from worker m (``lr * g``, the sgd
+    convention) is compensated for the staleness since that worker's last
+    update, ``w -= lr * (g + lambda * g * g * (w - backup[m]))``, and
+    ``backup[m] = w``. The backup starts at zero."""
+
+    name = "dcasgd"
+    stateless = False
+
+    def init_state(self, shape, dtype, num_workers: int, device=None):
+        return _per_worker_zeros(shape, dtype, num_workers, device)
+
+    def dense(self, data, state, delta, hyp, worker_id):
+        lr = scalar(hyp[1], data)
+        grad = delta / scalar(_safe_lr(hyp[1]), data)
+        comp = scalar(hyp[3], data) * grad * grad * (
+            data - _read_slot(state, worker_id))
+        data -= delta + lr * comp
+        if worker_id < state.shape[0]:
+            # A copy of the new table, never a view of the live storage.
+            state[worker_id].copy_(data)
+        return data, state
+
+
+_RULES = {cls.name: cls for cls in
+          (DefaultRule, SGDRule, MomentumRule, AdaGradRule, DCASGDRule)}
+# The reference's flag value for the momentum updater is "momentum_sgd"
+# (ref: src/updater/updater.cpp:47-58); accept both spellings.
+_RULES["momentum_sgd"] = MomentumRule
 
 
 def create_rule(updater_type: Optional[str] = None,
@@ -94,10 +192,6 @@ def create_rule(updater_type: Optional[str] = None,
         return DefaultRule()
     name = updater_type if updater_type is not None \
         else get_flag("updater_type")
-    if name in UNPORTED_RULES:
-        raise NotImplementedError(
-            f"updater {name!r} keeps per-row state; the stateful rules "
-            f"are not ported yet (ROADMAP B12)")
     cls = _RULES.get(name)
     if cls is None:
         log.error("unknown updater_type %r; using default", name)

@@ -244,10 +244,5 @@ def test_sparse_table_device_requests_and_dirty_protocols_raise():
                        torch.zeros(2, C))
         with pytest.raises(Exception, match="dense tables"):
             t.get_rows_device(torch.zeros(2, dtype=torch.int32))
-        with pytest.raises(NotImplementedError, match="A6"):
-            t.get_dirty_device()
-        with pytest.raises(NotImplementedError, match="B3"):
-            t.add_get_dirty_device(np.array([1], np.int32),
-                                   torch.zeros(1, C))
     finally:
         tmv.shutdown()

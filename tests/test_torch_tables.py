@@ -166,15 +166,3 @@ def test_host_requests_fuse_on_the_server():
 def test_unported_flags_raise(argv):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tmv.init(argv, device="cpu")
-
-
-def test_unported_tables_and_rules_raise():
-    tmv.init([], device="cpu")
-    try:
-        with pytest.raises(NotImplementedError, match="B12"):
-            tmv.create_matrix_table(4, 4, updater_type="adagrad")
-        sparse = tmv.create_matrix_table(4, 4, is_sparse=True)
-        with pytest.raises(NotImplementedError, match="A6"):
-            sparse.get_dirty_device()
-    finally:
-        tmv.shutdown()
