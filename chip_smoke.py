@@ -4,7 +4,7 @@ CUDA card.
 
 Phases, each fatal on failure:
 
-1. build the fourteen hand-written kernels from ``multiverso_tpu_torch/csrc``
+1. build the eighteen hand-written kernels from ``multiverso_tpu_torch/csrc``
    (one ``nvcc`` per source, all started together) and print the build
    time and ``ptxas`` resource usage;
 2. set up the main path at the benchmark's full width: the synthetic
@@ -89,8 +89,11 @@ Phases, each fatal on failure:
    grid-rounded deltas) and each stateful rule against their plain
    versions (also with 5% duplicate ids, wrapped and out-of-range ids,
    one row at 4,096 positions and a worker past the state's slots; rtol
-   1e-5 / atol 1e-7), K2 and K3 at C=50, each timed on 5 sets of rows
-   in turn (no call finds its rows in L2); then the paths,
+   1e-5 / atol 1e-7; the row at 4,096 positions, whose steps of both
+   signs cancel, against the plain version on the CPU, which adds in
+   position order as K13 and K14 do), K2 and K3 at C=50, each timed on
+   5 sets of rows in turn (no call finds its rows in L2); then the
+   paths,
    each 2 warm-up and 10 counted rounds (ms a round, the bench's GB/s,
    every kernel launched, the last round checked against a shadow
    table) and profiled (device ms a round, busy share): ``tbl_dense``
@@ -101,7 +104,21 @@ Phases, each fatal on failure:
    ``tbl_fused_<rule>`` (K14, host ids) for momentum, adagrad and
    dcasgd on a pipelined table; finally the tests' small op sequence
    under each rule on the card and on the CPU (ids equal, values,
-   tables and state within rtol 1e-4 / atol 1e-6).
+   tables and state within rtol 1e-4 / atol 1e-6);
+11. several servers in one process: the main path (PS SGNS at phase 2's
+   settings) over ``LocalCluster(n, roles=["all"] + ["server"] * (n -
+   1), device="cuda:0")`` — ``ps_2srv`` and ``ps_4srv`` with the device
+   keys broadcast to every server (K1, K15 ``row_gather_bounded``, K4,
+   K16 ``row_scatter_add_bounded``), ``ps_2srv_seg`` and
+   ``ps_4srv_seg`` with ``segment_keys=True`` (also K18
+   ``segment_split`` and K17 ``segment_merge``): every kernel of the
+   path against its plain version, bit for bit (K16 on grid-rounded
+   deltas), at blocks 0-4's ids on every server's window plus each
+   window's edge ids, timed over a block's calls with the 5 blocks'
+   rows in turn; 8 blocks counted (launches summed over the servers,
+   words/s) and profiled; finite tables; and the topic corpus through
+   the same cluster shape on the card and on the CPU with the same
+   draws (rtol 1e-4 / atol 1e-6).
 
 Phases 1-6 are as the second slice left them, the small-input checks
 now also comparing example counts, and K2 and K3 timed over all the
@@ -110,7 +127,8 @@ Huffman tree of the bench dictionary serves every HS model of the run.
 
 Prints one JSON ``kernels`` line (one entry a path and kernel: ``ps``,
 ``local_<mode>``, ``ps_<mode>``, ``hb_local_<mode>``, ``hb_ps_<mode>``,
-``lr_<path>`` or ``tbl_<path>``, with that path's launches), the card's name and
+``lr_<path>``, ``tbl_<path>`` or ``ps_<n>srv[_seg]``, with that path's
+launches), the card's name and
 power limit, and
 as its last line ``{"ok": true, "device": {...}}``. Exits non-zero with
 no result when CUDA is not available or the package is missing.
@@ -118,10 +136,11 @@ no result when CUDA is not available or the package is missing.
 Usage: ``python3 chip_smoke.py`` (one card). ``--profile DIR`` adds a
 ``torch.profiler`` trace of 8 more blocks (Chrome trace in DIR, the
 device's busy share and the host monitors) and keeps the Chrome trace
-of every counted path. ``--cpu-rehearsal`` runs phases 2 and 4-10 at a
-tiny size on the CPU with the plain versions (no kernels, no timing, no
-result line, exit code 3) to check the control flow on a host without a
-card.
+of every counted path. ``--multiserver-only`` builds the kernels and
+runs phase 11 alone (its ``kernels`` line and the card's line, no
+result line). ``--cpu-rehearsal`` runs phases 2 and 4-11 at a tiny size
+on the CPU with the plain versions (no kernels, no timing, no result
+line, exit code 3) to check the control flow on a host without a card.
 """
 
 from __future__ import annotations
@@ -276,18 +295,24 @@ def bound(bytes_moved: float, flops: float = 0.0):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def bench_corpus(workdir: str, sentences: int):
+    """``bench.py``'s synthetic corpus in ``workdir``: (dictionary,
+    tokenized corpus)."""
+    from multiverso_tpu_torch.models.wordembedding import (
+        Dictionary, TokenizedCorpus, synthetic)
+    path = os.path.join(workdir, "corpus.txt")
+    synthetic.write_corpus(path, sentences)
+    dictionary = Dictionary.build(path, min_count=synthetic.MIN_COUNT)
+    return dictionary, TokenizedCorpus.build(dictionary, path)
+
+
 def setup_main_path(torch, mv, device, workdir: str, sentences: int,
                     centers: int, dim: int):
     """Phase 2: corpus, dictionary, zoo, model and trainer."""
     from multiverso_tpu_torch.models.wordembedding import (
-        Dictionary, PSDeviceCorpusTrainer, PSWord2Vec, TokenizedCorpus,
-        Word2VecConfig)
-    from multiverso_tpu_torch.models.wordembedding import synthetic
+        PSDeviceCorpusTrainer, PSWord2Vec, Word2VecConfig)
     t0 = time.perf_counter()
-    path = os.path.join(workdir, "corpus.txt")
-    synthetic.write_corpus(path, sentences)
-    dictionary = Dictionary.build(path, min_count=synthetic.MIN_COUNT)
-    tokenized = TokenizedCorpus.build(dictionary, path)
+    dictionary, tokenized = bench_corpus(workdir, sentences)
     t1 = time.perf_counter()
     mv.init([], device=None if device.type == "cuda" else "cpu")
     config = Word2VecConfig(embedding_size=dim, window=WINDOW,
@@ -844,10 +869,11 @@ def compare_step(got, ref):
     return err, ok, loss_rel
 
 
-def ps_group_case(torch, trainer, u, table_in, table_out):
+def ps_group_case(torch, trainer, u, table_in, table_out, first: int = 0):
     """What a PS trainer's first dispatch pulls and pushes (the first
     group of G blocks of an epoch whose uniforms are ``u``, as
-    ``train_epoch`` forms it), over the random tables: the G blocks' pull
+    ``train_epoch`` forms it; with ``first``, the group of G blocks from
+    block ``first``), over the random tables: the G blocks' pull
     ids joined (per-pair: each block's band and all its 2W*C*K
     negatives) and the push deltas of each block's step on its slice of
     the pulled rows: ((table_in, in_ids, d_in), (table_out, out_ids,
@@ -860,11 +886,11 @@ def ps_group_case(torch, trainer, u, table_in, table_out):
     kept_pad, ksent_pad = device_train._pad_stream(C, W, kept, ksent)
     n_kept = int(n_kept)
     draws = device_train.TorchDraws(trainer.device).group_draws(
-        1234, 0, G, C, W, trainer._neg_shape(), trainer._vocab)
+        1234, first, G, C, W, trainer._neg_shape(), trainer._vocab)
     blocks = [device_train._block_ids(
         trainer.config, trainer._tables, C, trainer._B, trainer._per_pair,
-        draws[i], kept_pad, ksent_pad, n_kept, i * C, 0.025, 1.0)
-        for i in range(min(G, max(math.ceil(n_kept / C), 1)))]
+        draws[i], kept_pad, ksent_pad, n_kept, (first + i) * C, 0.025, 1.0)
+        for i in range(min(G, max(math.ceil(n_kept / C) - first, 1)))]
     in_ids = device_train._cat([b[0] for b in blocks])
     out_ids = device_train._cat([b[1] for b in blocks])
     v = rows.row_gather(table_in, in_ids, D)
@@ -2028,10 +2054,13 @@ def tbl_check_rule(torch, rules, rule: str, replaces: str, table, state,
     (ids, delta) ``sets`` in turn, worker 0."""
     err, failed = 0.0, []
     for name, (ids, delta, worker) in zip(TBL_CASES, cases):
-        a_d, a_s, b_d, b_s = table.clone(), state.clone(), table.clone(), \
-            state.clone()
+        a_d, a_s = table.clone(), state.clone()
         rules.row_rule_apply(rule, a_d, a_s, ids, delta, hyp, worker)
-        rules.row_rule_apply_plain(rule, b_d, b_s, ids, delta, hyp, worker)
+        dev = tbl_plain_device(torch, name, table)
+        b_d, b_s = table.to(dev, copy=True), state.to(dev, copy=True)
+        rules.row_rule_apply_plain(rule, b_d, b_s, ids.to(dev),
+                                   delta.to(dev), hyp, worker)
+        a_d, a_s = a_d.to(dev), a_s.to(dev)
         case_err = max(float((a_d - b_d).abs().max()),
                        float((a_s - b_s).abs().max()))
         err = max(err, case_err)
@@ -2062,6 +2091,15 @@ def tbl_check_rule(torch, rules, rule: str, replaces: str, table, state,
     return result
 
 
+def tbl_plain_device(torch, name: str, table):
+    """Where a case's plain version runs: on the CPU for the row at 4,096
+    positions, whose steps of both signs cancel in the sum — K13 and K14
+    add a run's steps in position order, as ``index_add_`` does on the
+    CPU, while on the card its float atomics take another order each
+    run, by more than rtol 1e-5 of such a sum; on the card otherwise."""
+    return torch.device("cpu") if name == TBL_CASES[3] else table.device
+
+
 def touched_ids(torch, ids, table) -> int:
     """Occurrences of ``ids`` that reach a row of ``table``."""
     flat = ids.to(torch.int64)
@@ -2079,13 +2117,18 @@ def tbl_check_fused(torch, rules, rule: str, table, state, cases, sets,
     err, failed = 0.0, []
     exact = state is None
     for name, (ids, delta, worker) in zip(TBL_CASES, cases):
-        a_d, b_d = table.clone(), table.clone()
+        a_d = table.clone()
         a_s = None if exact else state.clone()
-        b_s = None if exact else state.clone()
         va = rules.rows_apply_gather(rule, a_d, a_s, ids, delta, hyp, worker,
                                      ids, C)
-        vb = rules.rows_apply_gather_plain(rule, b_d, b_s, ids, delta, hyp,
-                                           worker, ids, C)
+        dev = table.device if exact else tbl_plain_device(torch, name, table)
+        b_d = table.to(dev, copy=True)
+        b_s = None if exact else state.to(dev, copy=True)
+        vb = rules.rows_apply_gather_plain(rule, b_d, b_s, ids.to(dev),
+                                           delta.to(dev), hyp, worker,
+                                           ids.to(dev), C)
+        va, a_d = va.to(dev), a_d.to(dev)
+        a_s = None if exact else a_s.to(dev)
         pairs = [(va, vb), (a_d, b_d)] + ([] if exact else [(a_s, b_s)])
         case_err = max(float((x - y).abs().max()) for x, y in pairs)
         err = max(err, case_err)
@@ -2169,13 +2212,13 @@ def tbl_kernel_checks(torch, np, device, card: str):
                   for x in tbl_edge_ids(np, rows, R))
     hyp = AddOption(**TBL_HYP).hyper_array()
     # In TBL_CASES' order; worker 1 is past the one slot. The row at
-    # 4,096 positions takes deltas of one sign, so that its steps sum
-    # away from zero. With both signs they cancel, and the sum's last
-    # digits then depend on the order of the additions (the plain version
-    # on the card adds with atomics) and on the last bit of each AdaGrad
-    # step (rsqrtf) by more than rtol 1e-5 of the sum.
+    # 4,096 positions takes deltas of both signs, whose steps cancel in
+    # the sum: K13 adds them in position order (one warp walks the run),
+    # as the plain version does on the CPU, and forms AdaGrad's step as
+    # 1/sqrt in correctly rounded operations, as the plain version does,
+    # so the two agree step for step.
     cases = [(ids, delta, 0), (dup, delta, 0), (edges, delta, 0),
-             (run, delta.abs(), 0), (ids, delta, 1)]
+             (run, delta, 0), (ids, delta, 1)]
     out = {}
     for suffix, _, replaces in TBL_RULES:
         state = tbl_state(torch, suffix, table, gen)
@@ -2482,6 +2525,364 @@ def run_table_phase(torch, np, mv, device, card: str, workdir: str,
     return results, counts
 
 
+# -- phase 11: several servers in one process --
+
+# (path, servers, segmented): the main path (PS SGNS at phase 2's
+# settings) over LocalCluster(n, roles=["all"] + ["server"] * (n - 1)),
+# the device keys broadcast to every server or cut per server.
+MS_PATHS = (("ps_2srv", 2, False), ("ps_4srv", 4, False),
+            ("ps_2srv_seg", 2, True), ("ps_4srv_seg", 4, True))
+# Block id sets timed in turn (blocks 0-4: other rows, so that no call
+# finds its rows in L2).
+MS_ROTATE = 5
+_MS_SRC = {"row_gather_bounded": _CSRC + "row_gather.cu",
+           "row_scatter_add_bounded": _CSRC + "row_scatter_add.cu",
+           "segment_merge": _CSRC + "segments.cu",
+           "segment_split": _CSRC + "segments.cu"}
+_MS_REF = {"row_gather_bounded":
+           "multiverso_tpu/tables/matrix_table.py:2777",
+           "row_scatter_add_bounded": "multiverso_tpu/updater/engine.py:132",
+           "segment_merge": _REF + "878",
+           "segment_split": _REF + "824"}
+
+
+def ms_cluster(n: int, device):
+    from multiverso_tpu_torch.runtime.cluster import LocalCluster
+    cluster = LocalCluster(n, roles=["all"] + ["server"] * (n - 1),
+                           device=str(device))
+    cluster.timeout = 900.0
+    return cluster
+
+
+def ms_run(cluster, make_model, work):
+    """``make_model()`` on every rank of ``cluster`` (table creation is
+    collective), then ``work(model)`` on rank 0, whose result is
+    returned; the server ranks mirror each of rank 0's barriers (one an
+    epoch) until it is done. A failure on rank 0 aborts the servers."""
+    import threading
+    from multiverso_tpu_torch import current_zoo
+    done = threading.Event()
+
+    def body(rank):
+        model = make_model()
+        zoo = current_zoo()
+        if rank:
+            while True:
+                zoo.barrier()
+                if done.is_set():
+                    return None
+        result = work(model)
+        done.set()
+        zoo.barrier()
+        return result
+
+    return cluster.run(body)[0]
+
+
+def ms_entry(name: str, tol: str, err: float, ok: bool, ms: float,
+             plain_ms: float, n_bytes: float):
+    return dict(name=name, tol=tol, max_abs_err=float(err), ok=ok,
+                source=_MS_SRC[name], replaces=_MS_REF[name], ms=ms,
+                plain_ms=plain_ms, library_ms=None, bound=bound(n_bytes))
+
+
+def ms_edge_ids(torch, ofs: int, n: int, R: int, device):
+    """The edges of a server window's rule: ofs-1, ofs, ofs+n-1, ofs+n,
+    -1, -R, the pad sentinel R, ids past it."""
+    return torch.tensor([ofs - 1, ofs, ofs + n - 1, ofs + n, -1, -R, R,
+                         R + 7, 2 ** 30, ofs], dtype=torch.int32,
+                        device=device)
+
+
+def ms_owned(torch, ids, ofs: int, n: int):
+    """(occurrences of ``ids`` in the window, distinct rows they reach)."""
+    flat = ids.reshape(-1).to(torch.int64)
+    own = flat[(flat >= ofs) & (flat < ofs + n)]
+    return int(own.numel()), int(torch.unique(own).numel())
+
+
+def ms_gather(torch, calls, edges, D: int):
+    """K15 on ``calls``, lists (one a set of rows) of (shard, ids, ofs, n)
+    as a block launches them, and on the ``edges`` calls: bit-exact on
+    the first set and the edges, timed over a block's calls, the sets in
+    turn."""
+    from multiverso_tpu_torch.kernels import rows
+    err, n_bytes = 0.0, 0
+    for shard, ids, ofs, n in calls[0] + edges:
+        got = rows.row_gather_bounded(shard, ids, ofs, n, D)
+        err = max(err, float((got - rows.row_gather_bounded_plain(
+            shard, ids, ofs, n, D)).abs().max()))
+    for shard, ids, ofs, n in calls[0]:
+        k = ids.numel()
+        n_bytes += k * 4 + k * D * 4 + ms_owned(torch, ids, ofs, n)[1] * D * 4
+    return ms_entry(
+        "row_gather_bounded", "bit-exact (every server's window, edge ids)",
+        err, err == 0.0,
+        time_ms(torch, in_turn(calls, lambda t, i, o, n:
+                               rows.row_gather_bounded(t, i, o, n, D))),
+        time_ms(torch, in_turn(calls, lambda t, i, o, n:
+                               rows.row_gather_bounded_plain(t, i, o, n, D))),
+        n_bytes)
+
+
+def ms_scatter(torch, calls, edges, D: int):
+    """K16 on ``calls``, lists of (shard, ids, delta, ofs, n), and on the
+    ``edges`` calls, each rounded ``on_grid``: bit-exact on the first set
+    and the edges; timed as ``ms_gather``, on clones of the shards."""
+    from multiverso_tpu_torch.kernels import rows
+    err, n_bytes = 0.0, 0
+    for shard, ids, delta, ofs, n in calls[0] + edges:
+        base, grid_delta = on_grid(torch, shard, ids, delta)
+        a = base.clone()
+        rows.row_scatter_add_bounded(a, ids, grid_delta, ofs, n, 1.0)
+        rows.row_scatter_add_bounded_plain(base, ids, grid_delta, ofs, n,
+                                           1.0)
+        err = max(err, float((a - base).abs().max()))
+        del a, base, grid_delta
+    for shard, ids, delta, ofs, n in calls[0]:
+        own, uniq = ms_owned(torch, ids.reshape(-1)[:delta.shape[0]], ofs, n)
+        n_bytes += ids.numel() * 4 + own * D * 4 + 2 * uniq * D * 4
+    clones = {}
+    sets = [[(clones.setdefault(id(t), t.clone()), i, d, o, n)
+             for t, i, d, o, n in c] for c in calls]
+    result = ms_entry(
+        "row_scatter_add_bounded",
+        "bit-exact on grid-rounded deltas (every server's window, edge "
+        "ids)", err, err == 0.0,
+        time_ms(torch, in_turn(sets, lambda t, i, d, o, n:
+                               rows.row_scatter_add_bounded(t, i, d, o, n))),
+        time_ms(torch, in_turn(sets, lambda t, i, d, o, n: rows.
+                               row_scatter_add_bounded_plain(t, i, d, o, n))),
+        n_bytes)
+    del sets, clones
+    return result
+
+
+def ms_valid_rows(bounds, caps, n: int) -> int:
+    """Rows of the S segments that copy a source row (the rest fill)."""
+    b = [int(x) for x in bounds.cpu()]
+    return sum(max(min(cap, n - b[s]), 0) for s, cap in enumerate(caps))
+
+
+def ms_segments(torch, preps, D: int):
+    """K18 (ids and deltas) and K17 on ``preps``, lists (one a set of
+    rows) of (segmented ids, pad sentinel, the ids, the reply parts, the
+    push delta) as a block launches them: bit-exact on the first set,
+    timed over a block's calls, the sets in turn."""
+    from multiverso_tpu_torch.kernels import segments as ks
+
+    def splits(seg, oor, ids, parts, delta, plain=False):
+        fn = ks.segment_split_plain if plain else ks.segment_split
+        return (fn(ids.reshape(-1), seg.order, seg.bounds, seg.caps, oor)
+                + fn(delta, seg.order, seg.bounds, seg.caps))
+
+    def merges(seg, oor, ids, parts, delta, plain=False):
+        fn = ks.segment_merge_plain if plain else ks.segment_merge
+        return fn(parts, seg.bounds, seg.inv, seg.caps)
+
+    split_err, merge_err = 0.0, 0.0
+    split_bytes = merge_bytes = 0
+    for case in preps[0]:
+        seg, _, ids, _, delta = case
+        for g, r in zip(splits(*case), splits(*case, plain=True)):
+            split_err = max(split_err, float(
+                (g.double() - r.double()).abs().max()))
+        n = ids.numel()
+        valid = ms_valid_rows(seg.bounds, seg.caps, n)
+        split_bytes += sum(valid * (8 + width * 4) + sum(seg.caps) * width * 4
+                           for width in (1, delta.shape[1]))
+        merge_err = max(merge_err, float(
+            (merges(*case) - merges(*case, plain=True)).abs().max()))
+        # The inverse permutation and the rows written; each row read
+        # from its owner's reply (or none past a capacity).
+        merge_bytes += n * 8 + 2 * n * D * 4
+    return [
+        ms_entry("segment_split",
+                 "bit-exact (ids and deltas, every server's segment)",
+                 split_err, split_err == 0.0,
+                 time_ms(torch, in_turn(preps, splits)),
+                 time_ms(torch, in_turn(preps, lambda *c: splits(
+                     *c, plain=True))), split_bytes),
+        ms_entry("segment_merge", "bit-exact (zeros past a capacity)",
+                 merge_err, merge_err == 0.0,
+                 time_ms(torch, in_turn(preps, merges)),
+                 time_ms(torch, in_turn(preps, lambda *c: merges(
+                     *c, plain=True))), merge_bytes)]
+
+
+def ms_step_kernel(torch, trainer, table_in, table_out):
+    """K4 at block 0's call, as ``check_kernels`` holds it."""
+    kernel, plain, args, n_bytes, flops, _ = step_kernel_case(
+        torch, trainer, table_in, table_out)
+    err, ok, loss_rel = compare_step(kernel(*args), plain(*args))
+    return dict(
+        name="banded_sgns_grad", tol=f"grads |err| <= 1e-5 + 1e-4 |plain|; "
+        f"loss rel err {loss_rel:.2g} <= 1e-5; counts equal",
+        max_abs_err=err, ok=ok, source=_CSRC + "banded_sgns.cu",
+        replaces=_REF + "729", ms=time_ms(torch, lambda: kernel(*args)),
+        plain_ms=time_ms(torch, lambda: plain(*args)), library_ms=None,
+        bound=bound(n_bytes, flops))
+
+
+def ms_kernel_checks(torch, trainer, path: str, seg: bool, card: str):
+    """Phase 11a: every kernel of a several-server path against its plain
+    version on the card: K1 on the epoch's uniforms, K4 at block 0's
+    call; K15 and K16 at blocks 0-4's pulls and pushes (``ps_group_case``
+    over random tables) on every server's window, and on each window's
+    edge ids; segmented, K18 cutting the ids and the push deltas, K15 and
+    K16 on each server's segment and K17 on the servers' replies. Times
+    are over the calls of one block, the 5 blocks' rows in turn."""
+    from multiverso_tpu_torch.kernels import rows
+    model = trainer.model
+    D = trainer.config.embedding_size
+    offsets = model._in_table._offsets
+    R = model._in_table.num_row
+    windows = [(offsets[s], offsets[s + 1] - offsets[s])
+               for s in range(len(offsets) - 1)]
+    table_in, table_out = random_tables(torch, trainer.device,
+                                        model_shapes(model))
+    u = trainer._draws.epoch_uniforms(1234, trainer._corpus.n_tokens)
+    results = [check_subsample(torch, trainer._corpus, u),
+               ms_step_kernel(torch, trainer, table_in, table_out)]
+    shards = [[(t[o:o + n], o, n) for o, n in windows]
+              for t in (table_in, table_out)]
+    gathers, scatters, preps = [], [], []
+    for first in range(MS_ROTATE):
+        cases = ps_group_case(torch, trainer, u, table_in, table_out, first)
+        g, sc, pr = [], [], []
+        for side, (_, ids, delta) in enumerate(cases):
+            if not seg:
+                g += [(t, ids, o, n) for t, o, n in shards[side]]
+                sc += [(t, ids, delta, o, n) for t, o, n in shards[side]]
+                continue
+            segmenter = trainer._seg_ids[side]
+            sg = segmenter.prep(ids)
+            parts = [rows.row_gather_bounded(t, i, o, n, D)
+                     for (t, o, n), i in zip(shards[side], sg.segments)]
+            pr.append((sg, segmenter.oor, ids, parts, delta))
+            for (t, o, n), i, d in zip(shards[side], sg.segments,
+                                       sg.split(delta)):
+                g.append((t, i, o, n))
+                sc.append((t, i, d, o, n))
+        gathers.append(g)
+        scatters.append(sc)
+        preps.append(pr)
+    gen = torch.Generator(device=trainer.device)
+    gen.manual_seed(11)
+    edges = [(t, ms_edge_ids(torch, o, n, R, trainer.device), o, n)
+             for t, o, n in shards[0]]
+    results.append(ms_gather(torch, gathers, edges, D))
+    results.append(ms_scatter(torch, scatters, [
+        (t, i, torch.randn(i.numel(), D, generator=gen,
+                           device=trainer.device) * 1e-2, o, n)
+        for t, i, o, n in edges], D))
+    if seg:
+        results += ms_segments(torch, preps, D)
+    del gathers, scatters, preps, shards, table_in, table_out
+    return report(results, card, path)
+
+
+def ms_small_run(torch, mv, device, workdir: str, n: int, seg: bool):
+    """The tests' topic corpus through ``LocalCluster(n)`` (PS SGNS, 6
+    blocks of 128 centers, draws from one CPU generator): (losses a
+    block, examples, in rows, out rows)."""
+    import numpy as np
+    from multiverso_tpu_torch.models.wordembedding import (
+        Dictionary, PSDeviceCorpusTrainer, PSWord2Vec, TokenizedCorpus,
+        TorchDraws, Word2VecConfig)
+    path = write_topics(workdir)
+    dictionary = Dictionary.build(path, min_count=1)
+    tokenized = TokenizedCorpus.build(dictionary, path)
+    config = Word2VecConfig(embedding_size=16, window=3, negative=5,
+                            epochs=2, min_count=1, sample=1e-2, use_ps=True,
+                            neg_block=8)
+
+    def work(model):
+        trainer = PSDeviceCorpusTrainer(
+            model, tokenized, centers_per_step=128, segment_keys=seg,
+            draws=TorchDraws(device, draw_device="cpu"))
+        losses = []
+        _, examples = trainer.train_epoch(
+            seed=5, max_steps=6, block_hook=lambda _w: losses.append(
+                float(trainer.last_loss)))
+        if (trainer._seg_ids is not None) != seg:
+            raise AssertionError("segmented keys not taken as asked")
+        return (np.array(losses), examples, model._in_table.get(),
+                model._out_table.get())
+
+    return ms_run(ms_cluster(n, device),
+                  lambda: PSWord2Vec(config, dictionary), work)
+
+
+def run_multiserver_phase(torch, np, mv, device, dictionary, tokenized,
+                          card: str, workdir: str, profile_dir: str,
+                          dim: int, scale_down: int):
+    """Phase 11: the main path (PS SGNS at phase 2's settings) over
+    ``LocalCluster(n, roles=["all"] + ["server"] * (n - 1))`` on one card,
+    for each of MS_PATHS: every kernel of the path against its plain
+    version (``ms_kernel_checks``), a counted run of BLOCKS blocks (every
+    kernel of the path launched, summed over the servers; words/s, then
+    profiled), finite tables, and the topic corpus trained through the
+    same cluster shape on the card and on the CPU with the same draws.
+    Returns (kernel results, launch counts per path)."""
+    from multiverso_tpu_torch.models.wordembedding import (
+        PSDeviceCorpusTrainer, PSWord2Vec, Word2VecConfig)
+    results, counts = [], {}
+    config = Word2VecConfig(embedding_size=dim, window=WINDOW, negative=NEG,
+                            epochs=3, min_count=1, sample=1e-3, use_ps=True,
+                            neg_block=NEG_BLOCK)
+    for path, n, seg in MS_PATHS:
+        t0 = time.perf_counter()
+        need = ["subsample_compact", "row_gather_bounded",
+                "banded_sgns_grad", "row_scatter_add_bounded"]
+        if seg:
+            need += ["segment_split", "segment_merge"]
+
+        def work(model, path=path, seg=seg, need=need):
+            trainer = PSDeviceCorpusTrainer(model, tokenized,
+                                            CENTERS // scale_down,
+                                            segment_keys=seg)
+            log(f"[{path}] {n} servers, model + trainer "
+                f"{time.perf_counter() - t0:.1f}s | offsets "
+                f"{model._in_table._offsets} | C={trainer._C}")
+            trainer.train_epoch(seed=99, max_steps=1)  # warm-up, calibrates
+            if seg:
+                log(f"[{path}] segment capacities: in "
+                    f"{trainer._seg_ids[0].caps}, out "
+                    f"{trainer._seg_ids[1].caps}")
+            checks = []
+            if device.type == "cuda":
+                checks = ms_kernel_checks(torch, trainer, path, seg, card)
+            path_counts = drive_counted(
+                torch, model, path, need, card, workdir, profile_dir,
+                lambda: trainer.train_epoch(seed=0, max_steps=BLOCKS),
+                BLOCKS, "block")
+            check_tables(np, model, path)
+            return checks, path_counts
+
+        checks, counts[path] = ms_run(
+            ms_cluster(n, device), lambda: PSWord2Vec(config, dictionary),
+            work)
+        results += checks
+        free(torch, device)
+        compare_small(np, f"{path}, 6 blocks",
+                      ms_small_run(torch, mv, device, workdir, n, seg),
+                      ms_small_run(torch, mv, torch.device("cpu"), workdir,
+                                   n, seg))
+    return results, counts
+
+
+def kernels_line(results, counts):
+    """One entry a (path, kernel): the check at that path's shapes and
+    the launches of that path's own counted run."""
+    return {"kernels": [dict(
+        name=r["name"], path=r["path"], route="cuda", source=r["source"],
+        replaces=r["replaces"], launches=int(counts[r["path"]][r["name"]]),
+        max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
+        bound_ms=r["bound"][0], bound_by=r["bound"][1],
+        library_ms=r["library_ms"]) for r in results]}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--cpu-rehearsal", action="store_true",
@@ -2491,6 +2892,9 @@ def main(argv=None) -> int:
                         help="also profile 8 blocks of the main path "
                              "(torch.profiler trace and host monitors "
                              "into DIR)")
+    parser.add_argument("--multiserver-only", action="store_true",
+                        help="build, then run phase 11 alone on the "
+                             "bench corpus (no result line)")
     args = parser.parse_args(argv)
     import numpy as np
     import torch
@@ -2525,6 +2929,15 @@ def main(argv=None) -> int:
     dim = 16 if rehearsal else DIM
     with tempfile.TemporaryDirectory(prefix="mv_chip_smoke_") as workdir:
         from multiverso_tpu_torch.models.wordembedding import synthetic
+        if args.multiserver_only:
+            dictionary, tokenized = bench_corpus(
+                workdir, sentences or synthetic.SENTENCES)
+            results, counts = run_multiserver_phase(
+                torch, np, mv, device, dictionary, tokenized, card, workdir,
+                args.profile, dim, 64 if rehearsal else 1)
+            print(json.dumps(kernels_line(results, counts)), flush=True)
+            print(card, flush=True)
+            return 3 if rehearsal else 0
         model, trainer, dictionary, tokenized = setup_main_path(
             torch, mv, device, workdir,
             sentences or synthetic.SENTENCES, centers, dim)
@@ -2575,7 +2988,8 @@ def main(argv=None) -> int:
                                            rehearsal),
                   lambda: run_table_phase(torch, np, mv, device, card,
                                           workdir, args.profile,
-                                          rehearsal))
+                                          rehearsal),
+                  lambda: run_multiserver_phase(torch, np, mv, *common))
         for number, phase in enumerate(phases, 6):
             t0 = time.perf_counter()
             phase_results, phase_counts = phase()
@@ -2585,18 +2999,7 @@ def main(argv=None) -> int:
     log(f"[done] {time.perf_counter() - started:.1f}s")
     if rehearsal:
         return 3
-    # One entry a (path, kernel): the check at that path's shapes and the
-    # launches of that path's own counted run.
-    kernels_line = {"kernels": []}
-    for r in results:
-        kernels_line["kernels"].append(dict(
-            name=r["name"], path=r["path"], route="cuda",
-            source=r["source"], replaces=r["replaces"],
-            launches=int(counts[r["path"]][r["name"]]),
-            max_abs_err=r["max_abs_err"], ms=r["ms"],
-            plain_ms=r["plain_ms"], bound_ms=r["bound"][0],
-            bound_by=r["bound"][1], library_ms=r["library_ms"]))
-    print(json.dumps(kernels_line), flush=True)
+    print(json.dumps(kernels_line(results, counts)), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

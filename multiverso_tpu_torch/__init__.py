@@ -15,8 +15,9 @@ from __future__ import annotations
 
 from typing import List, Optional
 
-from .runtime.zoo import (Zoo, current_zoo, set_default_zoo,  # noqa: F401
-                          set_thread_zoo)
+from .runtime.cluster import LocalCluster  # noqa: F401
+from .runtime.zoo import (ClusterAborted, Zoo, current_zoo,  # noqa: F401
+                          set_default_zoo, set_thread_zoo)
 from .tables import (ArrayTableOption, KVTableOption,  # noqa: F401
                      MatrixTableOption, create_array_table,
                      create_kv_table, create_matrix_table, create_table)

@@ -1,6 +1,7 @@
-// Device pieces shared by the row kernels K2, K3 and K14 (row_gather.cu,
-// row_scatter_add.cu, row_rules.cu): JAX's rule for a row id, and a
-// warp's atomic add of one delta row into one table row.
+// Device pieces shared by the row kernels K2, K3, K14, K15 and K16
+// (row_gather.cu, row_scatter_add.cu, row_rules.cu): JAX's rule for a
+// row id, the bounded rule of a shard's window, and a warp's atomic add
+// of one delta row into one table row.
 
 #pragma once
 
@@ -17,6 +18,25 @@ __device__ __forceinline__ int64_t wrap_id(int32_t raw, int64_t rows) {
   int64_t id = raw;
   if (id < 0) id += rows;
   return (id >= 0 && id < rows) ? id : -1;
+}
+
+// The local row of a GLOBAL id in a server shard's window [ofs, ofs + n)
+// (K15, K16: the reference's `jnp.where((ids >= ofs) & (ids < ofs + n),
+// ids - ofs, padded)`), or -1: an id outside the window is foreign —
+// negative ids included, which do NOT wrap here — and reads a zero row
+// or is dropped.
+__device__ __forceinline__ int64_t bounded_id(int32_t raw, int64_t ofs,
+                                              int64_t n) {
+  const int64_t id = static_cast<int64_t>(raw) - ofs;
+  return (id >= 0 && id < n) ? id : -1;
+}
+
+// The row an id reaches under the unbounded rule (wrap_id over `rows`)
+// or, with BOUNDED, under the window rule (bounded_id).
+template <bool BOUNDED>
+__device__ __forceinline__ int64_t row_of(int32_t raw, int64_t rows,
+                                          int64_t ofs, int64_t n) {
+  return BOUNDED ? bounded_id(raw, ofs, n) : wrap_id(raw, rows);
 }
 
 // dst[0:d_cols] += sign * src[0:d_cols] by the 32 lanes of a warp, with

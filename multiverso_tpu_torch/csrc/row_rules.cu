@@ -13,7 +13,7 @@
 // The rules, for an id r taken by a worker w with delta row dv:
 //   momentum: s' = m*s[r] + (1-m)*dv;  s[r] = s';  data[r] -= s'
 //   adagrad:  g = dv/max(lr,1e-12);  G' = G[w,r] + g*g;
-//             data[r] -= rho*g*rsqrt(G'+1e-6);  G[w,r] = G'
+//             data[r] -= rho*g*(1/sqrt(G'+1e-6));  G[w,r] = G'
 //   dcasgd:   g = dv/max(lr,1e-12);
 //             step = dv + lr*lambda*g*g*(data[r] - B[w,r]);
 //             data[r] -= step;  B[w,r] = data_old[r] - step
@@ -47,8 +47,10 @@
 // once (occupancy x SMs) and both phases stride over it.
 //
 // The arithmetic uses the _rn intrinsics in the reference's expression
-// order, so no FMA contraction moves a rounding; rsqrtf differs from
-// the CPU's rsqrt by an ulp or two, which the stated tolerances take.
+// order, so no FMA contraction moves a rounding. AdaGrad's
+// 1/sqrt(G + eps) is __fdiv_rn(1, __fsqrt_rn(.)), two correctly rounded
+// operations, as the plain version forms it on the CPU and on the card
+// (rsqrtf, like torch.rsqrt, is not correctly rounded).
 //
 // Bound on the card: bytes. K13 reads each id, delta row, table row and
 // state row once and writes each table and state row once; K14 adds
@@ -117,7 +119,8 @@ __device__ __forceinline__ void rule_step(const Hyp& h, float x0, float s0,
   } else if (RULE == kAdaGrad) {
     const float g = __fdiv_rn(dv, h.safe_lr);
     const float gs = __fadd_rn(s0, __fmul_rn(g, g));
-    step = __fmul_rn(__fmul_rn(h.rho, g), rsqrtf(__fadd_rn(gs, kAdaGradEps)));
+    step = __fmul_rn(__fmul_rn(h.rho, g),
+                     __fdiv_rn(1.f, __fsqrt_rn(__fadd_rn(gs, kAdaGradEps))));
     s_new = gs;
   } else {  // kDcasgd
     const float g = __fdiv_rn(dv, h.safe_lr);

@@ -7,6 +7,15 @@ subsample_compact  ``subsample.py``          ``_prep`` (B4)
 row_gather         ``rows.py``               ``MatrixServer._gather`` (B1)
 row_scatter_add    ``rows.py``               ``DefaultRule/SGDRule.rows``
                                              via ``apply_rows`` (B2)
+row_gather_        ``rows.py``               ``MatrixServer.
+bounded                                      _gather_bounded`` (B1b)
+row_scatter_add_   ``rows.py``               ``UpdateEngine.
+bounded                                      _bounded_rows_fn`` (B2b)
+segment_merge      ``segments.py``           ``_segmented_step_fn``
+                                             reassembly (B11)
+segment_split      ``segments.py``           ``_segmented_ids_fn`` slices,
+                                             ``_segmented_step_fn``
+                                             re-slicing (B11)
 banded_sgns_grad   ``sgns.py``               ``_block_step_fn`` SGNS (B10),
                                              ``_apply_step`` SGNS (B5)
 banded_cbow_grad   ``cbow.py``               ``_apply_step`` CBOW (B6)
@@ -42,8 +51,10 @@ from .hs import banded_hs_sg_grad, hs_cbow_grad
 from .logreg import sparse_lr_apply, sparse_lr_forward
 from .pair import pair_offset_grad
 from .pairlist import pairlist_hs_grad, pairlist_ns_grad
-from .rows import row_gather, row_scatter_add
+from .rows import (row_gather, row_gather_bounded, row_scatter_add,
+                   row_scatter_add_bounded)
 from .rules import row_rule_apply, rows_apply_gather
+from .segments import segment_merge, segment_split
 from .sgns import banded_sgns_grad
 from .subsample import subsample_compact
 
@@ -62,6 +73,10 @@ WRAPPERS = {
     "sparse_lr_apply": sparse_lr_apply,
     "row_rule_apply": row_rule_apply,
     "rows_apply_gather": rows_apply_gather,
+    "row_gather_bounded": row_gather_bounded,
+    "row_scatter_add_bounded": row_scatter_add_bounded,
+    "segment_merge": segment_merge,
+    "segment_split": segment_split,
 }
 
 

@@ -32,6 +32,9 @@ BUILD_DIR = PACKAGE_DIR / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC"]
 
+# Held around the first build: several threads (the rank threads of a
+# LocalCluster, each zoo's server actor) may reach their first kernel
+# at once, and one build must serve them all.
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 _build_log: List[str] = []
@@ -47,6 +50,13 @@ _F = ctypes.c_float
 SIGNATURES = {
     "mv_row_gather": [_P, _I64, _I64, _P, _I64, _P, _I, _P],
     "mv_row_scatter_add": [_P, _I64, _I64, _P, _I64, _P, _I, _F, _P],
+    "mv_row_gather_bounded": [_P, _I64, _I64, _P, _I64, _P, _I, _I64, _I64,
+                              _P],
+    "mv_row_scatter_add_bounded": [_P, _I64, _I64, _P, _I64, _P, _I, _F,
+                                   _I64, _I64, _P],
+    "mv_segment_merge": [_P, _P, _I, _P, _P, _I64, _I, _P, _P],
+    "mv_segment_split": [_P, _I64, _I, _P, _P, _I, _P, ctypes.c_uint32, _P,
+                         _P],
     "mv_subsample_compact": [_P, _P, _P, _P, _I64, _P, _P, _P, _P, _P, _P],
     "mv_banded_sgns_grad": [_P, _P, _P, _I, _I, _I, _I, _I, _F,
                             _P, _P, _P, _P, _P, _P, _P, _P],

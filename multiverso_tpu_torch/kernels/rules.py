@@ -57,6 +57,17 @@ def scalar(value, like: torch.Tensor) -> torch.Tensor:
                       device=like.device)
 
 
+def _inv_sqrt(x: torch.Tensor) -> torch.Tensor:
+    """``1 / sqrt(x)`` in float32 as two correctly rounded operations —
+    K13's and K14's ``__fdiv_rn(1, __fsqrt_rn(x))``. The square root is
+    taken in float64 and rounded once to float32, which is the correctly
+    rounded float32 root (53 >= 2 * 24 + 2 bits: the double rounding is
+    innocuous); ``torch.sqrt`` of a float32 CPU tensor is not correctly
+    rounded for some inputs, nor is ``torch.rsqrt`` on either device."""
+    root = torch.sqrt(x.double()).to(x.dtype)
+    return scalar(1, x) / root
+
+
 def rule_step(rule: str, hyp, x0: torch.Tensor, s0: torch.Tensor,
               dv: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """(step subtracted from the table, new state) of a stateful rule,
@@ -68,7 +79,7 @@ def rule_step(rule: str, hyp, x0: torch.Tensor, s0: torch.Tensor,
     grad = dv / scalar(safe_lr(lr), dv)
     if rule == "adagrad":
         g_sqr = s0 + grad * grad
-        step = scalar(rho, dv) * grad * torch.rsqrt(
+        step = scalar(rho, dv) * grad * _inv_sqrt(
             g_sqr + scalar(ADAGRAD_EPS, dv))
         return step, g_sqr
     step = dv + scalar(lr, dv) * scalar(lam, dv) * grad * grad * (x0 - s0)

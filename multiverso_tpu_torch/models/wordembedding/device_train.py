@@ -25,8 +25,11 @@ Two trainers:
   keys through the worker and server actors (K2), runs the step kernel
   of the mode on the pulled rows (K4-K8; the per-pair mode's 2W
   sub-steps train local copies) and pushes ``-lr * grad / num_workers``
-  back (K3). Broadcast keys only: segmented keys (``segment_keys=True``,
-  B11) raise ``NotImplementedError``.
+  back (K3). Over tables of several servers the device keys either go
+  to every server, which gathers (K15) and adds (K16) only its own rows
+  (broadcast), or, with ``segment_keys=True`` (B11), are sorted on the
+  card and cut into one calibrated segment a server (K18), whose replies
+  K17 puts back in place.
 
 The BANDED formulation is the reference's: the contexts of C
 consecutive centers all lie in ``kept[base-W : base+C+W]``, so a step
@@ -57,6 +60,7 @@ from ...kernels.hs import banded_hs_sg_grad, hs_cbow_grad
 from ...kernels.objective import offsets
 from ...kernels.pair import pair_offset_grad
 from ...kernels.rows import row_gather, row_scatter_add
+from ...kernels.segments import segment_merge, segment_split
 from ...kernels.sgns import banded_sgns_grad
 from ...kernels.subsample import subsample_compact
 from ...runtime import device_lock
@@ -292,9 +296,6 @@ class PSDeviceCorpusTrainer(_ModeTrainer):
         if not getattr(model, "_device_path", False):
             raise ValueError("PS device pipeline needs in-process "
                              "servers (device path)")
-        if segment_keys:
-            raise NotImplementedError("segmented device keys are not "
-                                      "ported yet (ROADMAP B11)")
         self._G = max(int(blocks_per_dispatch), 1)
         self.device = model._in_table.zoo.device
         # PSWord2Vec keeps its output structures host-side (its batch
@@ -305,6 +306,26 @@ class PSDeviceCorpusTrainer(_ModeTrainer):
                         tuple(torch.from_numpy(a).to(self.device)
                               for a in host), draws)
         self.last_loss: Optional[torch.Tensor] = None
+        # Segmented keys need several servers: on one they are a no-op.
+        self._segment_keys = bool(segment_keys) \
+            and model._in_table._num_server > 1
+        self._seg_ids: Optional[Tuple[_Segmenter, _Segmenter]] = None
+        self._overflow: Optional[torch.Tensor] = None
+
+    def _build_segment_programs(self, in_ids, out_ids) -> None:
+        """One-time calibration of the segmented form: read the first
+        group's per-server id counts back ONCE (set-up, one readback) and
+        fix static per-server capacities with 2x slack (``_segment_caps``)
+        for the input and the output ids."""
+        in_table, out_table = self.model._in_table, self.model._out_table
+        offsets = tuple(in_table._offsets)
+        if tuple(out_table._offsets) != offsets \
+                or in_table.num_row != out_table.num_row:
+            raise ValueError("segment mode expects same-shape in/out "
+                             "tables")
+        self._seg_ids = tuple(
+            _Segmenter.calibrate(ids, offsets, in_table.num_row)
+            for ids in (in_ids, out_ids))
 
     def train_epoch(self, seed: int, block_hook=None,
                     max_steps: int = 0) -> Tuple[float, float]:
@@ -356,16 +377,27 @@ class PSDeviceCorpusTrainer(_ModeTrainer):
                                      lrs[i], inv_w) for i in range(real)]
                 in_ids = _cat([b[0] for b in blocks])
                 out_ids = _cat([b[1] for b in blocks])
+            seg_in = seg_out = None   # broadcast keys
+            if self._segment_keys:
+                if self._seg_ids is None:
+                    self._build_segment_programs(in_ids, out_ids)
+                with monitor("PS_SEGMENT_IDS"):
+                    seg_in, seg_out = (
+                        seg.prep(ids) for seg, ids in
+                        zip(self._seg_ids, (in_ids, out_ids)))
+                    ovf = seg_in.overflow | seg_out.overflow
+                    self._overflow = ovf if self._overflow is None \
+                        else self._overflow | ovf
             with monitor("PS_GET_STALL"):
                 # One pull a table for the whole group: the device-key
                 # round trip through the worker and server actors; the
                 # replies are tensors on the card (no host sync).
-                mid_in = in_table.get_rows_device_async(in_ids)
-                mid_out = out_table.get_rows_device_async(out_ids)
+                mid_in = _pull_async(in_table, in_ids, seg_in)
+                mid_out = _pull_async(out_table, out_ids, seg_out)
                 in_table.wait(mid_in)
                 out_table.wait(mid_out)
-            v_all = in_table.take_device_rows()
-            u_all = out_table.take_device_rows()
+            v_all = _take_rows(in_table, seg_in)
+            u_all = _take_rows(out_table, seg_out)
             with monitor("PS_STEP"):
                 # Each block steps on its slice of the shared pulled
                 # state; losses and examples sum.
@@ -383,11 +415,10 @@ class PSDeviceCorpusTrainer(_ModeTrainer):
             with monitor("PS_PUSH"):
                 # Fire-and-forget pushes; the trailing drain bounds the
                 # epoch.
-                model._pending_pushes.append(
-                    (in_table, in_table.add_rows_async(in_ids, _cat(d_v))))
-                model._pending_pushes.append(
-                    (out_table, out_table.add_rows_async(out_ids,
-                                                         _cat(d_u))))
+                model._pending_pushes.append((in_table, _push_async(
+                    in_table, in_ids, _cat(d_v), seg_in)))
+                model._pending_pushes.append((out_table, _push_async(
+                    out_table, out_ids, _cat(d_u), seg_out)))
             loss_acc = loss if loss_acc is None else loss_acc + loss
             pair_acc = pairs if pair_acc is None else pair_acc + pairs
             self.last_loss = loss  # device scalar; timing sync point
@@ -396,9 +427,132 @@ class PSDeviceCorpusTrainer(_ModeTrainer):
         with monitor("PS_EPOCH_DRAIN"):
             model._drain_pushes()
             model._flush_word_count()
+            if self._overflow is not None:
+                # One readback an epoch (the drain already synced): a
+                # segment that outgrew its calibrated capacity means some
+                # ids never reached their owner — fail loud, never train
+                # silently wrong.
+                overflow, self._overflow = int(self._overflow), None
+                if overflow:
+                    raise RuntimeError(
+                        "segmented device keys overflowed a calibrated "
+                        "per-server capacity (id distribution shifted "
+                        ">2x from the calibration sample). Overflowed "
+                        "blocks pulled zero rows and pushed corrupted "
+                        "deltas THIS epoch — the tables are polluted: "
+                        "restore from a checkpoint (or reinit), then "
+                        "rebuild the trainer to recalibrate or pass "
+                        "segment_keys=False")
             in_table.zoo.barrier()
         return (0.0 if loss_acc is None else float(loss_acc),
                 0.0 if pair_acc is None else float(pair_acc))
+
+
+def _segment_caps(counts, total: int) -> tuple:
+    """Static per-server segment capacities from one calibration
+    sample: 2x slack + headroom, power-of-two bucketed, clamped to the
+    full id count (a capacity beyond that cannot help) — copied from the
+    reference."""
+    from ...updater.engine import bucket_size
+    cap_total = bucket_size(total)
+    return tuple(min(bucket_size(int(c) * 2 + 64), cap_total)
+                 for c in counts)
+
+
+class _Segmented:
+    """One id set of a group, segmented: the per-server ``segments``
+    (int32, padded with the ``oor`` sentinel), the sort's ``order`` and
+    ``inv`` (int64), the cut ``bounds`` [S + 1] (int32) and the
+    ``overflow`` flag (int32 0-d), all on the card."""
+
+    __slots__ = ("segments", "order", "inv", "bounds", "overflow", "caps")
+
+    def __init__(self, segments, order, inv, bounds, overflow, caps):
+        self.segments, self.order, self.inv = segments, order, inv
+        self.bounds, self.overflow, self.caps = bounds, overflow, caps
+
+    def merge(self, parts) -> torch.Tensor:
+        """The per-server reply rows back in the ids' places (K17)."""
+        return segment_merge(parts, self.bounds, self.inv, self.caps)
+
+    def split(self, delta: torch.Tensor):
+        """The ids' rows ``delta`` cut per server, in sorted order
+        (K18)."""
+        return segment_split(delta, self.order, self.bounds, self.caps)
+
+
+class _Segmenter:
+    """The per-server segmentation of one id set at calibrated
+    capacities (port of ``_segmented_ids_fn``'s ``prep``): sort the ids
+    stably, invert the permutation by a scatter, ``searchsorted`` the
+    servers' row offsets for the cut bounds (torch, on the card), and cut
+    one fixed-capacity slice a server (K18); a segment longer than its
+    capacity raises the overflow flag, which the trainer accumulates on
+    the card and reads at the end of the epoch. Slice slack needs no
+    masking: an entry past its server's bound belongs to the NEXT
+    server, whose own slice also carries it — the owner applies it,
+    every other server masks it out of its window."""
+
+    def __init__(self, offsets, caps, oor: int, device):
+        self.caps = tuple(int(c) for c in caps)
+        self.oor = int(oor)
+        self._offs = torch.tensor(list(offsets)[1:-1], dtype=torch.int32,
+                                  device=device)
+        self._caps = torch.tensor(self.caps, dtype=torch.int32,
+                                  device=device)
+
+    @classmethod
+    def calibrate(cls, ids: torch.Tensor, offsets, oor: int):
+        """Capacities from the per-server counts of ``ids`` (one
+        readback)."""
+        flat = np.sort(ids.reshape(-1).cpu().numpy())
+        counts = np.diff(np.searchsorted(flat, np.asarray(offsets)))
+        return cls(offsets, _segment_caps(counts, flat.size), oor,
+                   ids.device)
+
+    def prep(self, ids: torch.Tensor) -> _Segmented:
+        flat = ids.reshape(-1)
+        n = flat.numel()
+        sorted_ids, order = torch.sort(flat, stable=True)
+        # Inverse permutation by scatter (one pass) — a second sort
+        # would pay a full sort for what is just order[j] -> j.
+        inv = torch.empty_like(order).scatter_(
+            0, order, torch.arange(n, dtype=order.dtype, device=flat.device))
+        bounds = torch.cat([
+            torch.zeros(1, dtype=torch.int32, device=flat.device),
+            torch.searchsorted(sorted_ids, self._offs, out_int32=True),
+            torch.full((1,), n, dtype=torch.int32, device=flat.device)])
+        segments = segment_split(flat, order, bounds, self.caps,
+                                 fill=self.oor)
+        overflow = ((bounds[1:] - bounds[:-1]) > self._caps).any().to(
+            torch.int32)
+        return _Segmented(segments, order, inv, bounds, overflow, self.caps)
+
+
+def _pull_async(table, ids, seg: Optional[_Segmented]) -> int:
+    """A group's device-key pull: the ids to every server (broadcast), or
+    each server's segment to it alone."""
+    if seg is None:
+        return table.get_rows_device_async(ids)
+    return table.get_rows_device_segments_async(seg.segments)
+
+
+def _take_rows(table, seg: Optional[_Segmented]) -> torch.Tensor:
+    """The pulled rows in the ids' places: the servers' broadcast replies
+    summed, or their segments' replies put back in place (K17)."""
+    if seg is None:
+        return table.take_device_rows()
+    return seg.merge(table.take_device_row_parts())
+
+
+def _push_async(table, ids, delta: torch.Tensor,
+                seg: Optional[_Segmented]) -> int:
+    """A group's device-key push: ids and deltas to every server, or each
+    server's segment of them, re-sliced by K18, to it alone."""
+    if seg is None:
+        return table.add_rows_async(ids, delta)
+    return table.add_rows_device_segments_async(seg.segments,
+                                                seg.split(delta))
 
 
 def _cat(parts):

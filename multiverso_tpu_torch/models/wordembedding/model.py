@@ -42,7 +42,7 @@ import torch
 from ... import create_kv_table, create_matrix_table
 from ...kernels.pairlist import pairlist_hs_grad, pairlist_ns_grad
 from ...kernels.rows import row_scatter_add
-from ...runtime.zoo import resolve_device
+from ...runtime.zoo import current_zoo, resolve_device
 from ...util.dashboard import monitor
 from .data import CbowBatch
 from .dictionary import Dictionary
@@ -513,6 +513,8 @@ class PSWord2Vec(Word2Vec):
                  num_workers: Optional[int] = None):
         self._num_workers_override = num_workers
         super().__init__(config, dictionary)
+        if self._in_table is None:  # server-only rank: tables hosted
+            return
         zoo = self._in_table.zoo
         self._rng = np.random.default_rng(
             config.seed + 97 * max(zoo.worker_id, 0))
@@ -533,6 +535,16 @@ class PSWord2Vec(Word2Vec):
         self._out_table = create_matrix_table(self._out_rows, dim,
                                               updater_type="default")
         self._wc_table = create_kv_table()
+        if self._in_table is None:
+            # Server-only rank (a LocalCluster role "server"): it hosts
+            # its table shards and idles — the reference runs the same
+            # binary on every rank and lets role decide (src/zoo.cpp:
+            # 29-35). No worker-side step or bucket state to build.
+            zoo = current_zoo()
+            self._device_path = zoo.servers_in_process
+            self._num_workers = max(zoo.num_workers, 1)
+            self.device = zoo.device
+            return
         zoo = self._in_table.zoo
         self._num_workers = max(
             zoo.num_workers if self._num_workers_override is None

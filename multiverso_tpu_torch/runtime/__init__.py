@@ -1,1 +1,4 @@
-"""In-process actor runtime: zoo, worker, server, controller."""
+"""In-process actor runtime: zoo, worker, server, controller, virtual
+clusters."""
+
+from .cluster import LocalCluster  # noqa: F401

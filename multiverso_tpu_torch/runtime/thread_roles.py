@@ -90,7 +90,7 @@ THREAD_ROLES = {
     "runtime/metrics.py::MetricsReporter._main": BACKGROUND,
     "runtime/snapshot.py::SnapshotManager._main": BACKGROUND,
     "runtime/autotune.py::AutotuneManager._main": BACKGROUND,
-    "runtime/cluster.py::LocalCluster._run.rank_main": BACKGROUND,
+    "runtime/cluster.py::LocalCluster.run.rank_main": BACKGROUND,
     "util/async_buffer.py::ASyncBuffer._prefetch.run": BACKGROUND,
     "parallel/ma.py::model_average_async.run": BACKGROUND,
     "parallel/ma.py::sharded_model_average_async.run": BACKGROUND,

@@ -34,6 +34,10 @@ class Worker(Actor):
         self._cache.append(worker_table)
         return len(self._cache) - 1
 
+    def abort_tables(self, reason: str) -> None:
+        for table in self._cache:
+            table.abort(reason)
+
     # ref: src/worker.cpp:30-51
     def _process_get(self, msg: Message) -> None:
         with monitor("WORKER_PROCESS_GET"):

@@ -1,9 +1,13 @@
 """Zoo: per-rank runtime singleton — bootstrap, routing, barrier.
 
 Port of ``multiverso_tpu/runtime/zoo.py`` (ref: include/multiverso/
-zoo.h:19-85, src/zoo.cpp:41-188), cut to the in-process single-rank
-path: one process is worker, server and controller at once over a
-one-rank ``LocalFabric``. Start order mirrors the reference
+zoo.h:19-85, src/zoo.cpp:41-188), cut to the in-process paths: one
+process is worker, server and controller at once over a one-rank
+``LocalFabric``, or it runs several virtual ranks, one zoo each, over
+one ``LocalFabric`` (``runtime/cluster.py`` ``LocalCluster``, where a
+``role=`` per zoo replaces the process-wide ``-ps_role``, and ``abort``
+wakes every rank blocked on a failed sibling). Start order mirrors the
+reference
 (ref: src/zoo.cpp:73-102): controller, communicator, register with the
 controller to learn the rank→worker_id/server_id map, then server and
 worker actors, then a barrier.
@@ -99,6 +103,12 @@ _UNPORTED_DEFAULTS = {
 
 CONTROLLER_RANK = 0
 
+_ABORT = object()  # mailbox sentinel: unblocks control waits on abort
+
+
+class ClusterAborted(RuntimeError):
+    """Raised out of blocking control calls after Zoo.abort()."""
+
 
 _tls = threading.local()
 _default_zoo: Optional["Zoo"] = None
@@ -147,9 +157,9 @@ def check_unported_flags() -> None:
     role = str(get_flag("ps_role")).lower()
     if role not in ("default", "all"):
         raise NotImplementedError(
-            f"-ps_role={role!r}: the port runs one rank that is worker "
-            f"and server at once; split roles need the multi-process "
-            f"runtime (ROADMAP A9)")
+            f"-ps_role={role!r}: a rank of one role per process needs the "
+            f"multi-process runtime (ROADMAP A9); virtual ranks in one "
+            f"process take a role each from LocalCluster(roles=...)")
 
 
 class Zoo:
@@ -162,16 +172,27 @@ class Zoo:
         self._num_servers = 0
         self._started = False
         self._server_tables: List = []
+        self._aborted = False
+        self._role_override: Optional[str] = None
         self.device = None
 
     # -- lifecycle (ref: src/zoo.cpp:41-60) --
     def start(self, argv: Optional[List[str]] = None,
               net: Optional[NetInterface] = None,
-              device=None) -> List[str]:
+              device=None, role: Optional[str] = None) -> List[str]:
+        """``role`` overrides the -ps_role flag for this zoo (the flag
+        registry is process-global; virtual ranks with heterogeneous
+        roles need a per-zoo override). It needs an in-process net."""
         remaining = parse_cmd_flags(argv)
         check_unported_flags()
         self.device = resolve_device(device)
         self._net = net if net is not None else LocalFabric(1).endpoint(0)
+        if role is not None and not self._net.in_process:
+            raise NotImplementedError(
+                f"role={role!r} on a net that leaves the process: split "
+                f"roles across processes need the multi-process runtime "
+                f"(ROADMAP A9)")
+        self._role_override = role
         try:
             self._start_ps()
         except BaseException:
@@ -198,7 +219,10 @@ class Zoo:
         """ref: src/zoo.cpp:52-60,104-114."""
         if not self._started:
             return
-        self.barrier()
+        # After an abort the barrier would block on peers that are gone;
+        # tear the actors down directly.
+        if not self._aborted:
+            self.barrier()
         # Reverse start order (ref: src/zoo.cpp:104-113); communicator
         # last so in-flight replies still route.
         for name in (actors.WORKER, actors.SERVER, actors.CONTROLLER):
@@ -214,7 +238,8 @@ class Zoo:
         log.debug("Rank %d: multiverso shut down", self.rank)
 
     def _start_ps(self) -> None:
-        role = int(role_from_string(get_flag("ps_role")))
+        role = int(role_from_string(self._role_override
+                                    or get_flag("ps_role")))
         self._nodes = [Node(rank=r, role=int(Role.NONE))
                        for r in range(self.net_size)]
         self._nodes[self.rank].role = role
@@ -315,8 +340,23 @@ class Zoo:
 
     route = send_to  # alias used by the communicator's inbound path
 
+    # -- abort: unblock every control wait after a peer failure --
+    def abort(self) -> None:
+        """Mark this zoo dead and wake any thread blocked in barrier(),
+        registration, or a table wait. LocalCluster calls it on every
+        rank when one rank fails: without it, mispaired barriers and
+        requests to the dead rank hang forever."""
+        self._aborted = True
+        self.mailbox.push(_ABORT)
+        worker = self._actors.get(actors.WORKER)
+        if worker is not None:
+            worker.abort_tables(f"rank {self.rank}: cluster aborted")
+
     def _pop_control(self):
-        return self.mailbox.pop()
+        reply = self.mailbox.pop()
+        if reply is _ABORT or self._aborted:
+            raise ClusterAborted(f"rank {self.rank}: cluster aborted")
+        return reply
 
     # -- collective control (ref: src/zoo.cpp:152-176) --
     def barrier(self) -> None:

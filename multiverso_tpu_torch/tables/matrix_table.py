@@ -15,7 +15,11 @@ variant (ref: src/table/sparse_matrix_table.cpp). Semantics preserved:
 - DEVICE keys: a ``torch.Tensor`` of row ids (any shape, duplicates
   welcome) travels through the actors by reference and the reply is the
   tensor ``table[ids]`` — the in-process device path the word2vec
-  pipeline pulls and pushes through;
+  pipeline pulls and pushes through. On a table of several servers the
+  SAME ids go to every server, each gathers (K15) or adds (K16) only the
+  rows of its window and the worker sums the replies; a SEGMENTED
+  request (``-3``) instead carries one id segment a server, which goes
+  to that server alone;
 - ``store``/``load`` stream the logical rows as raw row-major bytes
   (ref: matrix_table.cpp:456-464), so the two packages read each
   other's checkpoints;
@@ -41,14 +45,13 @@ the card: ``get_device`` (a dense whole-table Get, a clone of the
 table), the sparse tables' ``get_dirty_device`` (``-2``: host dirty
 ids, rows gathered by K2) and ``add_get_dirty_device`` (``-4``: a row
 add and the dirty Get in one launch of K14, for one in-process
-server). The segmented device protocol (``-3``, B11) and the
-multi-server bounded forms (B1, B2) are later items of the port. The
-reference compresses sparse traffic only on a wire, which comes with
-the multi-process transport (A9).
+server). The reference compresses sparse traffic only on a wire,
+which comes with the multi-process transport (A9).
 """
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Dict, List, Optional
 
@@ -57,7 +60,7 @@ import torch
 
 from ..core.blob import Blob, is_device_array
 from ..core.message import MsgType
-from ..kernels.rows import row_gather
+from ..kernels.rows import row_gather, row_gather_bounded
 from ..sharding import mesh as meshlib
 from ..updater import AddOption, GetOption, UpdateEngine, create_rule
 from ..updater.engine import bucket_size, pad_ids
@@ -73,6 +76,9 @@ define_bool("verify_device_ids", False,
 _ALL_KEY = np.array([-1], dtype=np.int32)
 # Sparse dirty-row Get whose values reply on the device (host ids).
 _ALL_KEY_DEVICE_REPLY = np.array([-2], dtype=np.int32)
+# Pre-segmented device-key request: [-3, seg_0..seg_{S-1}] (Get), or
+# [-3, seg_0..seg_{S-1}, delta_0..delta_{S-1}, option] (Add).
+_SEGMENTED_KEY = np.array([-3], dtype=np.int32)
 # Fused sparse add + dirty-row Get, one in-process server: a Get whose
 # blobs are [-4, rows, delta, add option, get option(, device rows)].
 _ADD_GET_DIRTY_KEY = np.array([-4], dtype=np.int32)
@@ -148,6 +154,9 @@ class MatrixWorker(WorkerTable):
         self._dest: Optional[np.ndarray] = None
         self._dest_rows: Optional[np.ndarray] = None
         self._device_shards: Optional[Dict[int, torch.Tensor]] = None
+        # Device-key replies over several servers SUM (each server
+        # zero-fills foreign rows); every other device reply concatenates.
+        self._device_sum = False
         # Host ids of each server's device dirty-row reply (-2, -4).
         self._device_shard_ids: Optional[Dict[int, np.ndarray]] = None
         self._mirror_verified = False  # -verify_device_ids: once a table
@@ -215,7 +224,11 @@ class MatrixWorker(WorkerTable):
         DEVICE ids (a ``torch.Tensor``, int32) pass through the stack
         without touching the host: any shape, any order, duplicates
         welcome — the reply is ``table[row_ids]`` with shape
-        ``row_ids.shape + (num_col,)``."""
+        ``row_ids.shape + (num_col,)``. On several servers the SAME ids
+        go to every server; each gathers only its own rows (foreign rows
+        fill 0, K15) and the worker SUMS the replies — every row is owned
+        by exactly one server, so the sum is the exact gather, at one
+        more ``[k, C]`` pass a server."""
         if is_device_array(row_ids):
             CHECK(self._zoo.servers_in_process,
                   "device-key row gets need the servers in this process")
@@ -224,11 +237,9 @@ class MatrixWorker(WorkerTable):
                   "bookkeeping needs host ids)")
             CHECK(row_ids.dtype == torch.int32,
                   "device row ids must be int32")
-            CHECK(self._num_server == 1,
-                  "device-key row gets on a multi-server table (masked "
-                  "broadcast, B1 bounded form) are not ported yet")
             self._dest, self._dest_rows = None, None
             self._device_shards = {}
+            self._device_sum = self._num_server > 1
             return self._request_get(Blob(row_ids))
         row_ids = np.ascontiguousarray(row_ids, dtype=np.int32).reshape(-1)
         CHECK(row_ids.size > 0, "empty device row get")
@@ -238,6 +249,8 @@ class MatrixWorker(WorkerTable):
                   "device row gets need sorted row ids")
         self._dest, self._dest_rows = None, None
         self._device_shards = {}
+        self._device_sum = False  # host-key replies CONCATENATE (a stale
+        # True from an errored device-key get must not survive)
         return self._request_get(Blob(row_ids.view(np.uint8)))
 
     def _request_get(self, keys: Blob) -> int:
@@ -364,20 +377,87 @@ class MatrixWorker(WorkerTable):
         CHECK(not self.is_sparse,
               "device get is for dense tables (sparse replies are ragged)")
         self._dest, self._dest_rows, self._device_shards = None, None, {}
+        self._device_sum = False
         self.wait(self._request_get(Blob(_ALL_KEY.view(np.uint8))))
         return self.take_device_rows()
 
     def take_device_rows(self) -> torch.Tensor:
         """Assembled result of the last ``get_rows_device_async`` (call
-        after ``wait``); clears the reply slot."""
+        after ``wait``); clears the reply slot. Device-key replies of
+        several servers SUM (each server zero-fills foreign rows);
+        host-key replies concatenate (each server returned its
+        contiguous sorted segment)."""
+        device_sum, self._device_sum = self._device_sum, False
         ordered = self.take_device_row_parts()
         if len(ordered) == 1:
             return ordered[0]
+        if device_sum:
+            return functools.reduce(torch.add, ordered)
         return torch.cat(ordered, dim=0)
+
+    def get_rows_device_segments_async(self, segments) -> int:
+        """Pre-segmented device row pull: ``segments`` is one int32 id
+        vector on the card PER SERVER (the caller cut its sorted ids per
+        server, e.g. with K18). Each server receives ONLY its segment;
+        entries outside its window (slice slack, padding) gather as zero
+        rows (K15). Replies are keyed by server id: take them with
+        ``take_device_row_parts``. The per-server gather follows the
+        segment's size, not the full id count."""
+        CHECK(self._zoo.servers_in_process,
+              "segmented device gets need the servers in this process")
+        CHECK(not self.is_sparse, "segmented device gets are for dense "
+              "tables")
+        CHECK(len(segments) == self._num_server, "one segment per server")
+        # Shape/dtype violations would otherwise surface inside the
+        # server actor, where the exception is only logged and the
+        # caller hangs in wait() — fail in the CALLER.
+        for seg in segments:
+            CHECK(is_device_array(seg) and seg.dtype == torch.int32
+                  and seg.dim() == 1,
+                  "segments must be 1-D int32 id tensors")
+        self._dest, self._dest_rows = None, None
+        self._device_shards = {}
+        self._device_sum = False
+        return self.get_async_raw(Blob(_SEGMENTED_KEY.view(np.uint8)),
+                                  [Blob(s) for s in segments])
+
+    def add_rows_device_segments_async(self, segments, deltas,
+                                       option: Optional[AddOption] = None
+                                       ) -> int:
+        """Pre-segmented device row push: per-server (ids, delta) pairs;
+        each server scatter-adds only the entries of its segment in its
+        window (K16; slack and padding drop). The stateless-updater
+        contract of device-key ``add_rows_async``."""
+        CHECK(self._zoo.servers_in_process,
+              "segmented device adds need the servers in this process")
+        CHECK(not self.is_sparse, "segmented device adds are for dense "
+              "tables")
+        CHECK(len(segments) == self._num_server
+              and len(deltas) == self._num_server,
+              "one (segment, delta) pair per server")
+        CHECK(self._updater_stateless,
+              "device-key row adds need a stateless updater "
+              "(default/sgd): duplicate ids must sum")
+        for seg, delta in zip(segments, deltas):
+            CHECK(is_device_array(seg) and is_device_array(delta),
+                  "segments and deltas must be device tensors")
+            CHECK(seg.dtype == torch.int32 and seg.dim() == 1,
+                  "segments must be 1-D int32 id tensors")
+            CHECK(delta.dtype == torch.float32
+                  and tuple(delta.shape) == (seg.shape[0], self.num_col),
+                  "bad segment delta shape")
+        msg_id = self._new_request()
+        self._send_request(
+            MsgType.Request_Add,
+            [Blob(_SEGMENTED_KEY.view(np.uint8))]
+            + [Blob(s) for s in segments] + [Blob(d) for d in deltas]
+            + [self._option_blob(option)], msg_id)
+        return msg_id
 
     def take_device_row_parts(self) -> List[torch.Tensor]:
         """The raw per-server reply shards of the last device get, in
-        SERVER order, without assembling them."""
+        SERVER order, without assembling them (segmented pulls
+        reassemble them positionally, with K17)."""
         shards = self._device_shards
         CHECK(shards is not None and len(shards) > 0,
               "no device row get outstanding")
@@ -425,9 +505,6 @@ class MatrixWorker(WorkerTable):
                   "bad device delta shape")
             CHECK(row_ids.dtype == torch.int32,
                   "device row ids must be int32")
-            CHECK(self._num_server == 1,
-                  "device-key row adds on a multi-server table (masked "
-                  "broadcast, B2 bounded form) are not ported yet")
             return self.add_async_raw(Blob(row_ids), Blob(delta),
                                       self._option_blob(option))
         row_ids = np.ascontiguousarray(row_ids, dtype=np.int32).reshape(-1)
@@ -446,11 +523,26 @@ class MatrixWorker(WorkerTable):
 
     def partition(self, blobs, msg_type) -> Dict[int, List[Blob]]:
         if blobs[0].on_device:
-            # Device-key requests: the same blob list goes to the server
-            # (object references — zero copies in-process).
+            # Device-key requests: the same blob list goes to EVERY
+            # server (object references — zero copies in-process); each
+            # server masks foreign rows on the card. Splitting the ids
+            # here would need their values on the host.
             return {sid: list(blobs) for sid in range(self._num_server)}
         keys = blobs[0].as_array(np.int32)
         out: Dict[int, List[Blob]] = {}
+        if keys.size == 1 and keys[0] == -3:
+            # Pre-segmented device-key request: segment s (and its delta
+            # for adds) goes to server s ONLY.
+            S = self._num_server
+            rest = blobs[1:]
+            if msg_type == MsgType.Request_Get:
+                CHECK(len(rest) == S, "segmented get: one id blob per "
+                      "server")
+                return {s: [rest[s]] for s in range(S)}
+            CHECK(len(rest) == 2 * S + 1, "segmented add: per-server ids "
+                  "+ deltas + option")
+            return {s: [rest[s], rest[S + s], rest[2 * S]]
+                    for s in range(S)}
         if keys.size == 1 and keys[0] == -4 \
                 and msg_type == MsgType.Request_Get:
             # The fused add + dirty Get is a Get: one server (the caller
@@ -631,11 +723,14 @@ class MatrixServer(ServerTable):
         option = AddOption.from_blob(blobs[2]) if len(blobs) == 3 else None
         if blobs[0].on_device:
             # Device-key scatter-add: ids and delta never touch the host.
+            # Several servers: every server receives the full request (or
+            # its segment); foreign rows drop (K16).
             CHECK(self._up_to_date is None,
                   "device-key adds are for dense tables")
             self._data = self._engine.apply_rows(
                 self._data, blobs[0].typed(np.int32),
-                blobs[1].typed(self.dtype), option)
+                blobs[1].typed(self.dtype), option,
+                bounds=self._shard_bounds)
             return
         keys = blobs[0].as_array(np.int32)
         delta = blobs[1].typed(self.dtype)
@@ -674,13 +769,18 @@ class MatrixServer(ServerTable):
     def process_get(self, blobs: List[Blob]) -> List[Blob]:
         if blobs[0].on_device:
             # Device-key gather: reply values shaped ids.shape + (C,), on
-            # the card. The server id rides along so the worker can key
-            # the reply shard by ORIGIN server.
+            # the card. Several servers: foreign rows gather as 0 (K15)
+            # and the worker sums the replies (or reassembles segments).
+            # The server id rides along so the worker can key the reply
+            # shard by ORIGIN server.
             CHECK(self._up_to_date is None,
                   "device-key gets are for dense tables")
             rows = blobs[0].typed(np.int32)
-            return [blobs[0], Blob(row_gather(self._data, rows,
-                                              self.num_col)),
+            bounds = self._shard_bounds
+            values = row_gather(self._data, rows, self.num_col) \
+                if bounds is None else \
+                row_gather_bounded(self._data, rows, *bounds, self.num_col)
+            return [blobs[0], Blob(values),
                     Blob(np.array([self.server_id], dtype=np.int32))]
         keys = blobs[0].as_array(np.int32)
         if keys.size == 1 and keys[0] == -4:
@@ -699,6 +799,16 @@ class MatrixServer(ServerTable):
         values = self._gather_rows(keys)
         self._mark_clean(keys, blobs)
         return [blobs[0], Blob(values)]
+
+    @property
+    def _shard_bounds(self) -> Optional[tuple]:
+        """(row_offset, my_rows) when the global ids of a device-key
+        request need masking to this shard — several servers only (the
+        reference's ``_shard_bounds``); None keeps one server's device
+        requests on K2 and K3."""
+        if self._zoo.num_servers > 1:
+            return (self.row_offset, self.my_rows)
+        return None
 
     def _mark_clean(self, keys: np.ndarray, blobs: List[Blob]) -> None:
         """A sparse row Get marks its rows up-to-date for the asking

@@ -14,6 +14,11 @@ in-process slice. Contract preserved exactly:
   the waiter releases ``wait(msg_id)`` (ref: src/worker.cpp:78-88,
   src/table.cpp:84-111).
 
+``abort`` (driven by ``Zoo.abort``, when a sibling rank of a
+``LocalCluster`` fails) releases every outstanding waiter; a blocked or
+later ``wait`` and any new request raise ``ClusterAborted`` instead of
+hanging on a reply that never comes.
+
 ``ServerTable`` is ``Serializable`` — ``store``/``load`` stream the
 shard state in the reference's byte format
 (ref: include/multiverso/table_interface.h:61-75). Retries after a lost
@@ -29,7 +34,7 @@ from typing import Dict, List, Optional, Sequence
 from ..core.blob import Blob
 from ..core.message import Message, MsgType, stamp_trace
 from ..runtime import actor as actors
-from ..runtime.zoo import current_zoo
+from ..runtime.zoo import ClusterAborted, current_zoo
 from ..util import tracing
 from ..util.waiter import Waiter
 from .client_cache import VersionTracker
@@ -64,6 +69,8 @@ class WorkerTable:
         # Sampled requests' open ROOT spans: msg_id -> (trace id, issue
         # timestamp, span name) (util/tracing.py).
         self._trace_open: Dict[int, tuple] = {}
+        # Set by abort(): every later wait and request raises.
+        self._abort_reason: Optional[str] = None
 
     # -- async API (ref: src/table.cpp:41-82) --
     def get_async_raw(self, keys: Blob, extra: Sequence[Blob] = ()) -> int:
@@ -97,6 +104,9 @@ class WorkerTable:
         self._zoo.send_to(actors.WORKER, msg)
 
     def _new_request(self) -> int:
+        # A request made AFTER an abort would wait on a reply that can
+        # never come (its waiter postdates abort()'s release sweep).
+        self._check_aborted()
         with self._mutex:
             self._msg_id += 1
             msg_id = self._msg_id
@@ -106,12 +116,14 @@ class WorkerTable:
     # -- waiter plumbing, driven by the worker actor
     #    (ref: src/table.cpp:84-111) --
     def wait(self, msg_id: int, timeout: Optional[float] = None) -> bool:
+        self._check_aborted()
         with self._mutex:
             waiter = self._waitings.get(msg_id)
         if waiter is None:
             self._raise_if_failed(msg_id)
             return True  # already completed
         ok = waiter.wait(timeout=timeout)
+        self._check_aborted()
         if ok:
             with self._mutex:
                 self._waitings.pop(msg_id, None)
@@ -123,6 +135,20 @@ class WorkerTable:
             error = self._errors.pop(msg_id, None)
         if error is not None:
             raise TableRequestError(error)
+
+    def _check_aborted(self) -> None:
+        if self._abort_reason is not None:
+            raise ClusterAborted(self._abort_reason)
+
+    def abort(self, reason: str) -> None:
+        """Release every outstanding waiter; blocked and later ``wait``
+        calls raise ClusterAborted."""
+        self._abort_reason = reason
+        self._trace_open.clear()  # roots of aborted requests never close
+        with self._mutex:
+            waiters = list(self._waitings.values())
+        for waiter in waiters:
+            waiter.release()
 
     def fail(self, msg_id: int, reason: str, count: bool = True) -> None:
         """Record a remote failure for a request; the requester's

@@ -6,6 +6,10 @@ to a concrete table. The reference donates the table buffers to XLA
 port updates the storage tensor in place directly (every caller
 rebinds to the returned tensor, which is the same object).
 
+On a table of several servers a device-key row add carries GLOBAL
+ids to every server; ``apply_rows(..., bounds=)`` keeps each server to
+its window (K16, the reference's ``_bounded_rows_fn``).
+
 Row calls keep the reference's bucket contract: host row ids pad to a
 power-of-two bucket with the out-of-range sentinel (``pad_ids`` /
 ``pad_rows``, unchanged), so the ids on the wire and in the API have
@@ -82,26 +86,34 @@ class UpdateEngine:
         return data
 
     def apply_rows(self, data: torch.Tensor, row_ids, delta,
-                   option: Optional[AddOption] = None) -> torch.Tensor:
+                   option: Optional[AddOption] = None,
+                   bounds: Optional[Tuple[int, int]] = None) -> torch.Tensor:
         """``row_ids`` int32[k], ``delta`` [k, ...]: host ids pad to a
         power-of-two bucket with out-of-range indices (dropped). Device
         ids (a tensor of any shape, delta shaped ids.shape + row shape)
-        pass as they are."""
+        pass as they are. ``bounds=(offset, n)``: the ids are GLOBAL and
+        only those in ``[offset, offset + n)`` update this shard, at
+        local row ``id - offset`` (K16); every other id drops (the
+        reference's ``_bounded_rows_fn``). Stateless rules only."""
         hyp, worker_id = _unpack(option)
-        if is_device_array(row_ids):
+        if is_device_array(row_ids) or bounds is not None:
             # Device-key ids may carry duplicates, which only SUM
             # correctly under stateless rules.
             CHECK(self._state is None,
                   "device-key row adds need a stateless updater "
                   "(default/sgd): duplicate ids must sum")
-        else:
+        if not is_device_array(row_ids):
             row_ids, delta = pad_rows(row_ids, delta, self.shape[0])
         ids = _on(row_ids, data.device).to(torch.int32)
         delta = _on(delta, data.device)
         delta = delta.reshape(-1, delta.shape[-1]) if delta.dim() >= 2 \
             else delta.reshape(ids.numel(), -1)
-        self.rule.rows(data, self._state, ids.reshape(-1),
-                       delta.contiguous(), hyp, worker_id)
+        if bounds is None:
+            self.rule.rows(data, self._state, ids.reshape(-1),
+                           delta.contiguous(), hyp, worker_id)
+        else:
+            self.rule.rows_bounded(data, ids.reshape(-1),
+                                   delta.contiguous(), bounds)
         return data
 
     def apply_rows_gather(self, data: torch.Tensor, row_ids, delta,

@@ -38,7 +38,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from ..kernels.rows import row_scatter_add
+from ..kernels.rows import row_scatter_add, row_scatter_add_bounded
 from ..kernels.rules import ADAGRAD_EPS  # noqa: F401 (the reference's name)
 from ..kernels.rules import row_rule_apply, rows_apply_gather, rule_step
 from ..kernels.rules import safe_lr as _safe_lr
@@ -92,20 +92,25 @@ class DefaultRule(UpdaterRule):
         data += delta
         return data, state
 
+    sign = 1.0
+
     def rows(self, data, state, row_ids, delta, hyp, worker_id):
-        row_scatter_add(data, row_ids, delta, 1.0)
+        row_scatter_add(data, row_ids, delta, self.sign)
         return data, state
 
+    def rows_bounded(self, data, row_ids, delta, bounds) -> None:
+        """``rows`` over a server shard's window ``bounds=(offset, n)`` of
+        GLOBAL ids (K16); the stateful rules have no bounded form."""
+        row_scatter_add_bounded(data, row_ids, delta, bounds[0], bounds[1],
+                                self.sign)
 
-class SGDRule(UpdaterRule):
+
+class SGDRule(DefaultRule):
     name = "sgd"
+    sign = -1.0
 
     def dense(self, data, state, delta, hyp, worker_id):
         data -= delta
-        return data, state
-
-    def rows(self, data, state, row_ids, delta, hyp, worker_id):
-        row_scatter_add(data, row_ids, delta, -1.0)
         return data, state
 
 

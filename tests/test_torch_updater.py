@@ -16,7 +16,9 @@ delta, ``apply_rows`` and ``apply_rows_gather`` with its bucket CHECK.
 
 Tolerances: default and sgd on distinct ids bit for bit; every other
 case rtol 1e-5 / atol 1e-7 (duplicate ids sum in another order, and
-rsqrt differs by an ulp between the packages).
+the reference's rsqrt differs by an ulp from the port's 1/sqrt). The
+port's AdaGrad step is pinned to ``(rho*g) * (1/sqrt(G + eps))``, two
+correctly rounded operations, bit for bit.
 """
 
 import time
@@ -302,3 +304,34 @@ def test_kernel_wrappers_check_rule_and_state():
     with pytest.raises(ValueError, match="n_col"):
         krules.rows_apply_gather("sgd", data, None, ids, delta, HYP, 0,
                                  ids, C + 1)
+
+
+def test_adagrad_step_is_one_over_sqrt():
+    # K13's plain AdaGrad step, formed step by step in float32 in the
+    # reference's expression order with 1/sqrt, each operation correctly
+    # rounded (numpy's, and K13's __fdiv_rn(1, __fsqrt_rn(.)) on the
+    # card), bit for bit. (torch.sqrt of a float32 CPU tensor is not
+    # correctly rounded for ~0.6% of inputs on an AVX512 host.)
+    from multiverso_tpu_torch.kernels import rules as krules
+    rng = np.random.default_rng(21)
+    rows, cols = 512, 16
+    data = rng.standard_normal((rows, cols)).astype(np.float32)
+    state = (np.abs(rng.standard_normal((1, rows, cols))) * 10.0
+             ).astype(np.float32)
+    ids = rng.permutation(rows)[:300].astype(np.int32)
+    delta = (rng.standard_normal((ids.size, cols)) * 0.01
+             ).astype(np.float32)
+    m, lr, rho, lam = HYP
+    g = delta / np.maximum(lr, np.float32(1e-12))
+    g_sqr = state[0, ids] + g * g
+    inv_sqrt = np.float32(1) / np.sqrt(g_sqr + np.float32(1e-6))
+    step = (rho * g) * inv_sqrt
+    want = data.copy()
+    want[ids] = data[ids] - step
+    got_d, got_s = torch.from_numpy(data.copy()), torch.from_numpy(
+        state.copy())
+    krules.row_rule_apply_plain("adagrad", got_d, got_s,
+                                torch.from_numpy(ids),
+                                torch.from_numpy(delta), HYP, 0)
+    np.testing.assert_array_equal(got_d.numpy(), want)
+    np.testing.assert_array_equal(got_s.numpy()[0, ids], g_sqr)

@@ -189,9 +189,10 @@ def test_port_trains_with_its_own_draws(tmp_path):
 
 
 def test_unported_modes_raise(tmp_path):
-    # CBOW, HS, per-pair and G > 1 run now (tests/test_torch_ps_modes.py);
-    # segmented keys (B11) and the host-batch arm that needs the
-    # multi-process runtime (A9) still raise.
+    # CBOW, HS, per-pair and G > 1 run now (tests/test_torch_ps_modes.py),
+    # segmented keys on one server are a no-op as in the reference (they
+    # run over several: tests/test_torch_segmented.py); the host-batch
+    # arm that needs the multi-process runtime (A9) still raises.
     path = tmp_path / "corpus.txt"
     write_topic_corpus(path, n_sentences=50)
     d = Dictionary.build(str(path), min_count=1)
@@ -201,9 +202,9 @@ def test_unported_modes_raise(tmp_path):
         model = PSWord2Vec(Word2VecConfig(embedding_size=8, cbow=True), d)
         PSDeviceCorpusTrainer(model, tok, centers_per_step=16,
                               blocks_per_dispatch=4)
-        with pytest.raises(NotImplementedError, match="B11"):
-            PSDeviceCorpusTrainer(model, tok, centers_per_step=16,
-                                  segment_keys=True)
+        trainer = PSDeviceCorpusTrainer(model, tok, centers_per_step=16,
+                                        segment_keys=True)
+        assert not trainer._segment_keys and trainer._seg_ids is None
         model._device_path = False
         with pytest.raises(NotImplementedError, match="A9"):
             model.train_batches(iter([model.prepare(next(
