@@ -4,7 +4,7 @@ CUDA card.
 
 Phases, each fatal on failure:
 
-1. build the eighteen hand-written kernels from ``multiverso_tpu_torch/csrc``
+1. build the nineteen hand-written kernels from ``multiverso_tpu_torch/csrc``
    (one ``nvcc`` per source, all started together) and print the build
    time and ``ptxas`` resource usage;
 2. set up the main path at the benchmark's full width: the synthetic
@@ -118,7 +118,31 @@ Phases, each fatal on failure:
    rows in turn; 8 blocks counted (launches summed over the servers,
    words/s) and profiled; finite tables; and the topic corpus through
    the same cluster shape on the card and on the CPU with the same
-   draws (rtol 1e-4 / atol 1e-6).
+   draws (rtol 1e-4 / atol 1e-6);
+12. model averaging (B16): ``ma_mesh4``, the device MA group
+   (``_ma_group_fn``) on ``local_mesh(4)`` — four replica slots of the
+   one card — at the local SGNS settings (16384 centers a step, 16
+   steps a group, neg_block 8): the epoch's kept stream (K1) split
+   evenly over the slots, each slot's steps on its replica (K2, K4, K3),
+   then K19 ``mesh_allreduce``'s mean of the replicas; K1, K2, K4 and K3
+   against their plain versions at slot 0's first step, K19 bit for
+   bit at the path's shape in both forms (the mean to one copy, the sum
+   to four), timed beside ``x.mean(0)`` / ``torch.sum(x, 0)``; 1 warm-up
+   and 4 counted groups (raw words/s of all slots, then profiled:
+   device ms a group, K19's share); finite tables; the reference
+   test's small MA group (8 slots) on the card and on the CPU with the
+   same draws. ``ma_sgd4``: ``MASGDStep`` on four slots, the reference
+   test's regression (y = 2x, 60 steps) to |w - 2| < 1e-2, loss < 1e-3,
+   w within 1e-6 of the CPU's, K19 launched. ``ma_ranks``:
+   ``MACorpusTrainer`` over ``LocalCluster(2, argv=["-ma=true"],
+   device="cuda:0")``, half the corpus a rank, 8 groups of 16 steps
+   averaged every 4, with ``overlap=False``, ``overlap=True``, then
+   ``overlap=False`` again (words/s, ``MA_COMM_STALL``, the host's peak
+   memory): the two modes apply the same average at the same point, but
+   K3's float atomics make the card's local steps vary from run to run,
+   so each rank's final tables must differ between sync and overlap by
+   no more than 10x what the two sync runs differ (bit-identical when
+   those are; the CPU tests hold the modes bit-identical).
 
 Phases 1-6 are as the second slice left them, the small-input checks
 now also comparing example counts, and K2 and K3 timed over all the
@@ -127,8 +151,8 @@ Huffman tree of the bench dictionary serves every HS model of the run.
 
 Prints one JSON ``kernels`` line (one entry a path and kernel: ``ps``,
 ``local_<mode>``, ``ps_<mode>``, ``hb_local_<mode>``, ``hb_ps_<mode>``,
-``lr_<path>``, ``tbl_<path>`` or ``ps_<n>srv[_seg]``, with that path's
-launches), the card's name and
+``lr_<path>``, ``tbl_<path>``, ``ps_<n>srv[_seg]``, ``ma_mesh4`` or
+``ma_sgd4``, with that path's launches), the card's name and
 power limit, and
 as its last line ``{"ok": true, "device": {...}}``. Exits non-zero with
 no result when CUDA is not available or the package is missing.
@@ -138,7 +162,8 @@ Usage: ``python3 chip_smoke.py`` (one card). ``--profile DIR`` adds a
 device's busy share and the host monitors) and keeps the Chrome trace
 of every counted path. ``--multiserver-only`` builds the kernels and
 runs phase 11 alone (its ``kernels`` line and the card's line, no
-result line). ``--cpu-rehearsal`` runs phases 2 and 4-11 at a tiny size
+result line), ``--ma-only`` phase 12 alike. ``--cpu-rehearsal`` runs
+phases 2 and 4-12 at a tiny size
 on the CPU with the plain versions (no kernels, no timing, no result
 line, exit code 3) to check the control flow on a host without a card.
 """
@@ -2872,6 +2897,420 @@ def run_multiserver_phase(torch, np, mv, device, dictionary, tokenized,
     return results, counts
 
 
+# -- phase 12: model averaging (B16) --
+
+# ma_mesh4: the device MA group (_ma_group_fn) on MA_SLOTS replica slots
+# of one card at the local SGNS settings (bench.py:135-149); ma_ranks:
+# MACorpusTrainer over LocalCluster(MA_RANKS, ["-ma=true"]); ma_sgd4:
+# MASGDStep on MA_SLOTS slots (the reference test's linear regression).
+MA_SLOTS, MA_C, MA_G, MA_GROUPS = 4, 16384, 16, 4
+MA_RANKS, MA_AVG_EVERY, MA_RANK_GROUPS = 2, 4, 8
+MA_SGD_STEPS, MA_SGD_BATCH = 60, 16
+_MA_SRC = _CSRC + "mesh_reduce.cu"
+
+
+def time_events_ms(torch, fn, reps: int = REPS) -> float:
+    """Wall time of one ``fn()`` call on the stream: CUDA events around
+    ``reps`` calls after warm-up, divided by ``reps`` (for calls of a
+    millisecond or more, where the launch gaps are hidden)."""
+    for _ in range(3):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def ma_k19_check(torch, x, replaces: str, mean: bool, copies: int):
+    """K19 on ``x`` [n, M] in one form against its plain version on the
+    same input: bit-exact (compared as int32 bit patterns), timed beside
+    the one PyTorch call of the same function (``x.mean(0)`` or
+    ``torch.sum(x, 0)``: another summation order, timed only). Inputs
+    past 64 MB are timed with CUDA events over ``REPS`` calls: there
+    ``time_ms``'s profiler sums have read below the byte bound (PERF.md
+    §6); smaller ones with ``time_ms``, whose events would time the
+    launches."""
+    from multiverso_tpu_torch.kernels import mesh
+    n, m = x.shape
+    got = mesh.mesh_allreduce(x, mean, copies)
+    ref = mesh.mesh_allreduce_plain(x, mean, copies)
+    same = bool(torch.equal(got.view(torch.int32), ref.view(torch.int32)))
+    err = float((got - ref).abs().max())
+    del got, ref
+    library = (lambda: x.mean(0)) if mean else (lambda: torch.sum(x, 0))
+    timer = time_events_ms if n * m * 4 > 64 << 20 else time_ms
+    return dict(
+        name="mesh_allreduce", tol=f"bit-exact ({'mean' if mean else 'sum'}"
+        f", {n} slots, copies {copies}, M={m})", max_abs_err=err, ok=same,
+        source=_MA_SRC, replaces=replaces,
+        ms=timer(torch, lambda: mesh.mesh_allreduce(x, mean, copies)),
+        plain_ms=timer(torch, lambda: mesh.mesh_allreduce_plain(
+            x, mean, copies)),
+        library_ms=timer(torch, library),
+        bound=bound((n + copies) * m * 4))
+
+
+def ma_spread_values(torch, shape, device, seed: int):
+    """Seeded normal values over 16 binades: a sum of them rounds, so an
+    order other than the slot order would show."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    x = torch.randn(shape, generator=gen, device=device)
+    x.mul_(torch.exp2(torch.randint(-8, 8, shape, generator=gen,
+                                     device=device).float()))
+    return x
+
+
+def ma_slot_draws(device, n: int, draw_device=None):
+    """One ``TorchDraws`` for each of n slots, slot s seeded with s."""
+    from multiverso_tpu_torch.models.wordembedding import TorchDraws
+    draws = [TorchDraws(device, draw_device) for _ in range(n)]
+    for s, d in enumerate(draws):
+        d.generator.manual_seed(s)
+    return draws
+
+
+def trace_kernel_ms(trace: str, needle: str) -> float:
+    """Summed ms of the kernels whose name holds ``needle`` in a Chrome
+    trace written by ``trace_kernels``."""
+    with open(trace) as f:
+        events = json.load(f)
+    events = events.get("traceEvents", events)
+    return sum(float(e["dur"]) for e in events
+               if e.get("cat") == "kernel" and "dur" in e
+               and needle in e.get("name", "")) / 1e3
+
+
+def ma_small_group(torch, np, device):
+    """The reference test's case (tests/test_wordembedding.py
+    TestMAWord2Vec: C 64, W 2, K 3, 512 kept tokens a slot, V 40, D 8,
+    G 2, 8 slots), two chained groups, draws from CPU generators:
+    (losses, pairs, emb_in, emb_out)."""
+    from multiverso_tpu_torch.models.wordembedding.device_train import (
+        _ma_group_fn)
+    from multiverso_tpu_torch.sharding.mesh import local_mesh
+    C, W, K, n_local, V, D, G, n = 64, 2, 3, 512, 40, 8, 2, 8
+    rng = np.random.default_rng(0)
+
+    def t(a):
+        return torch.from_numpy(np.asarray(a)).to(device)
+
+    emb_in = t((rng.random((V, D)).astype(np.float32) - 0.5) / D)
+    emb_out = t(np.zeros((V, D), np.float32))
+    kept = t(rng.integers(0, V, n * n_local).astype(np.int32))
+    ksent = t(np.repeat(np.arange(n * n_local // 16, dtype=np.int32), 16))
+    draws = ma_slot_draws(device, n, draw_device="cpu")
+    fn = _ma_group_fn(local_mesh(n, device=device), C, W, K)
+    losses, pairs = [], 0.0
+    for _ in range(2):
+        emb_in, emb_out, loss, p = fn(
+            emb_in, emb_out, kept, ksent, t(np.ones(V, np.float32)),
+            t(np.arange(V, dtype=np.int32)), draws, [0, C],
+            np.full(G, 0.05, np.float32), [n_local] * n)
+        losses.append(float(loss))
+        pairs += float(p)
+    return (np.array(losses), pairs, emb_in.cpu().numpy(),
+            emb_out.cpu().numpy())
+
+
+def ma_mesh_path(torch, np, device, dictionary, tokenized, card: str,
+                 workdir: str, profile_dir: str, dim: int, scale_down: int):
+    """``ma_mesh4``: ``_ma_group_fn`` over ``local_mesh(MA_SLOTS)`` at
+    full width — the epoch's kept stream (K1) split evenly over the
+    slots, each slot MA_G steps a group on its replica (K2, K4, K3),
+    then K19's mean of the replicas. K1, K2, K4 and K3 are held to their
+    plain versions at slot 0's first step (as phase 6), K19 bit for bit
+    at the path's shape in both forms; 1 warm-up and MA_GROUPS counted
+    groups (raw words/s of all slots, device ms a group, K19's share);
+    finite tables; the reference test's small case card vs CPU."""
+    from multiverso_tpu_torch.models.wordembedding import (
+        DeviceCorpusTrainer, TorchDraws, Word2Vec, Word2VecConfig)
+    from multiverso_tpu_torch.models.wordembedding.device_train import (
+        _ma_group_fn)
+    from multiverso_tpu_torch.sharding.mesh import local_mesh
+    path = "ma_mesh4"
+    cuda = device.type == "cuda"
+    t0 = time.perf_counter()
+    C = MA_C // scale_down
+    config = Word2VecConfig(embedding_size=dim, window=WINDOW, negative=NEG,
+                            epochs=3, min_count=1, sample=1e-3,
+                            neg_block=NEG_BLOCK)
+    model = Word2Vec(config, dictionary, device=device)
+    trainer = DeviceCorpusTrainer(model, tokenized, C, MA_G)
+    V, D = model._emb_in.shape
+    log(f"[{path}] model + trainer {time.perf_counter() - t0:.1f}s | "
+        f"{MA_SLOTS} slots of ({V}, {D}) x 2 on {device} | C={C} "
+        f"G={MA_G}")
+    results = []
+    if cuda:
+        results += check_step_kernels(
+            torch, trainer, path, "banded_sgns_grad",
+            _CSRC + "banded_sgns.cu", _REF + "439", card, model_shapes(model))
+        x = ma_spread_values(torch, (MA_SLOTS, V * D), device, 12)
+        mean_form = ma_k19_check(torch, x, _REF + "439", True, 1)
+        sum_form = ma_k19_check(torch, x, _REF + "439", False, MA_SLOTS)
+        del x
+        free(torch, device)
+        report([mean_form, sum_form], card, path)
+        # The kernels line keeps the form this path runs (the mean to one
+        # copy); the allreduce form's numbers are in the log above.
+        results.append(mean_form)
+    mesh = local_mesh(MA_SLOTS, device=device)
+    T = trainer._corpus.n_tokens
+    fn = _ma_group_fn(mesh, C, WINDOW, NEG, NEG_BLOCK)
+    draws = ma_slot_draws(device, MA_SLOTS)
+    lrs = np.full(MA_G, config.init_learning_rate, np.float32)
+    epoch = {}
+
+    def start_epoch(seed: int) -> None:
+        """K1 on the epoch's uniforms; the kept stream split evenly over
+        the slots."""
+        kept, ksent, n_kept = trainer._corpus.prep_epoch(
+            TorchDraws(device).epoch_uniforms(seed, T))
+        n_kept = int(n_kept)
+        n_local = n_kept // MA_SLOTS
+        epoch.update(
+            kept=kept[:MA_SLOTS * n_local], ksent=ksent[:MA_SLOTS * n_local],
+            n_local=n_local, steps=math.ceil(n_local / C),
+            # Raw corpus words a slot-step covers (the trainer's
+            # accounting).
+            raw=T / math.ceil(n_kept / C), n_kept=n_kept)
+
+    def run(count: int, seed: int = 0):
+        start_epoch(seed)
+        loss_sum, pairs_sum = 0.0, 0.0
+        for g in range(count):
+            bases = [((g * MA_G + i) % epoch["steps"]) * C
+                     for i in range(MA_G)]
+            model._emb_in, model._emb_out, loss, pairs = fn(
+                model._emb_in, model._emb_out, epoch["kept"],
+                epoch["ksent"], *trainer._tables, draws, bases, lrs,
+                [epoch["n_local"]] * MA_SLOTS)
+            model._account_words(MA_SLOTS * MA_G * epoch["raw"])
+            loss_sum += float(loss)
+            pairs_sum += float(pairs)
+        return loss_sum, pairs_sum
+
+    run(1, seed=99)    # warm-up, not counted
+    log(f"[{path}] kept {epoch['n_kept']} of {T} tokens: "
+        f"{epoch['n_local']} a slot, {epoch['steps']} steps a slot an "
+        f"epoch")
+    counts = drive_counted(
+        torch, model, path, ("subsample_compact", "row_gather",
+                             "banded_sgns_grad", "row_scatter_add",
+                             "mesh_allreduce"),
+        card, workdir, profile_dir, lambda: run(MA_GROUPS), MA_GROUPS,
+        "group")
+    if cuda:
+        trace = os.path.join(profile_dir or workdir, f"{path}_trace.json")
+        k19_ms = trace_kernel_ms(trace, "mesh_allreduce")
+        all_ms = trace_kernel_ms(trace, "")
+        log(f"[{path}] K19 {k19_ms / MA_GROUPS:.4f} ms a group (2 calls) "
+            f"of {all_ms / MA_GROUPS:.4f} device ms ({k19_ms / all_ms:.1%})"
+            f"; {MA_SLOTS * MA_G} slot-steps a group")
+    check_tables(np, model, path)
+    del model, trainer, fn, epoch
+    free(torch, device)
+    compare_small(np, f"{path}: the reference test's MA group (8 slots, "
+                  f"2 chained groups)", ma_small_group(torch, np, device),
+                  ma_small_group(torch, np, torch.device("cpu")))
+    return results, {path: counts}
+
+
+def ma_sgd_run(torch, np, device):
+    """The reference test's linear regression (tests/test_collectives.py
+    test_ma_sgd_step_trains: y = 2x, MA_SGD_BATCH samples a slot,
+    MA_SGD_STEPS steps, lr 0.1) through ``MASGDStep`` on MA_SLOTS slots:
+    (w, last loss)."""
+    from multiverso_tpu_torch.parallel import MASGDStep
+    from multiverso_tpu_torch.sharding.mesh import local_mesh
+
+    def loss_fn(params, batch):
+        return torch.mean((params["w"] * batch[..., 0] - batch[..., 1]) ** 2)
+
+    rng = np.random.default_rng(1)
+    step = MASGDStep(loss_fn, local_mesh(MA_SLOTS, device=device), lr=0.1)
+    params, loss = {"w": torch.zeros((), device=device)}, None
+    for _ in range(MA_SGD_STEPS):
+        x = rng.standard_normal(MA_SLOTS * MA_SGD_BATCH).astype(np.float32)
+        params, loss = step(params, np.stack([x, 2 * x], axis=-1))
+    return float(params["w"]), loss
+
+
+def ma_sgd_path(torch, np, device, card: str):
+    """``ma_sgd4``: ``MASGDStep`` on ``local_mesh(MA_SLOTS)``, with
+    K19's launches counted; K19 held bit for bit at the step's shapes
+    (the gradients' sum over the slots); |w - 2| < 1e-2, a loss below
+    1e-3, and the card's w within 1e-6 of the CPU's."""
+    from multiverso_tpu_torch import kernels
+    path = "ma_sgd4"
+    results = []
+    if device.type == "cuda":
+        x = ma_spread_values(torch, (MA_SLOTS, 1), device, 5)
+        results = report([ma_k19_check(
+            torch, x, "multiverso_tpu/parallel/ma.py:305", False, 1)],
+            card, path)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    w, loss = ma_sgd_run(torch, np, device)
+    elapsed = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    w_cpu, _ = ma_sgd_run(torch, np, torch.device("cpu"))
+    log(f"[{path}] {card} | {MA_SGD_STEPS} steps in {elapsed:.3f}s | w "
+        f"{w:.7f} (CPU {w_cpu:.7f}) | loss {loss:.3g} | K19 launches "
+        f"{counts['mesh_allreduce']}")
+    if not (abs(w - 2.0) < 1e-2 and loss < 1e-3 and abs(w - w_cpu) < 1e-6):
+        raise AssertionError(f"{path}: w {w} (CPU {w_cpu}), loss {loss}")
+    if device.type == "cuda" and counts["mesh_allreduce"] <= 0:
+        raise AssertionError(f"{path} never launched mesh_allreduce")
+    return results, {path: counts}
+
+
+def corpus_shards(tokenized, parts: int):
+    """``tokenized`` cut into ``parts`` shards of whole sentences."""
+    from multiverso_tpu_torch.models.wordembedding import TokenizedCorpus
+    offsets = tokenized.offsets
+    cuts = [round(i * (len(offsets) - 1) / parts) for i in range(parts + 1)]
+    return [TokenizedCorpus(tokenized.flat[offsets[a]:offsets[b]],
+                            offsets[a:b + 1] - offsets[a])
+            for a, b in zip(cuts, cuts[1:])]
+
+
+def host_peak_gib() -> float:
+    """This process's peak resident memory so far, in GiB."""
+    import resource
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2 ** 20
+
+
+def max_diff(np, a, b) -> float:
+    """Largest absolute difference of two float32 arrays (0.0 only when
+    they are equal bit for bit, signed zeros aside)."""
+    return float(np.abs(a - b).max()) if not np.array_equal(
+        a.view(np.int32), b.view(np.int32)) else 0.0
+
+
+def ma_ranks_path(torch, np, device, dictionary, tokenized, card: str,
+                  dim: int, scale_down: int):
+    """``ma_ranks``: ``MACorpusTrainer`` on every rank of
+    ``LocalCluster(MA_RANKS, argv=["-ma=true"])`` on the one card, a half
+    of the corpus a rank, MA_RANK_GROUPS groups of MA_G steps averaged
+    every MA_AVG_EVERY groups, run with ``overlap=False``, then
+    ``overlap=True``, then ``overlap=False`` again: raw words/s and
+    ``MA_COMM_STALL`` of each run, the host's peak memory; every run's
+    tables finite. The two modes apply the same average at the same
+    point, but the card's local steps are not reproducible bit for bit
+    (K3 adds duplicate ids with float atomics, in an order that varies
+    from run to run), so sync against overlap must differ no more than
+    10x what the two sync runs differ from each other (exactly equal
+    when the sync runs are; a fault of the averaging, such as a skipped
+    or misplaced average, moves values by the updates themselves,
+    orders of magnitude more). Every average copies both tables to the
+    host and back (the reference's design): the path is host-bound."""
+    from multiverso_tpu_torch import kernels
+    from multiverso_tpu_torch.models.wordembedding import (
+        MACorpusTrainer, Word2Vec, Word2VecConfig)
+    from multiverso_tpu_torch.runtime.cluster import LocalCluster
+    from multiverso_tpu_torch.util.dashboard import Dashboard
+    path = "ma_ranks"
+    shards = corpus_shards(tokenized, MA_RANKS)
+    config = Word2VecConfig(embedding_size=dim, window=WINDOW, negative=NEG,
+                            epochs=3, min_count=1, sample=1e-3,
+                            neg_block=NEG_BLOCK)
+    C = MA_C // scale_down
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+
+    def body(rank, overlap):
+        model = Word2Vec(config, dictionary, device=device)
+        trainer = MACorpusTrainer(model, shards[rank],
+                                  avg_every=MA_AVG_EVERY, overlap=overlap,
+                                  centers_per_step=C, steps_per_dispatch=MA_G)
+        sync()
+        t0 = time.perf_counter()
+        loss, examples = trainer.train_epoch(
+            seed=rank, max_steps=MA_RANK_GROUPS * MA_G,
+            group_quota=MA_RANK_GROUPS)
+        trainer.finish()
+        sync()
+        return (time.perf_counter() - t0, model.trained_words, loss,
+                examples, trainer.comm_rounds, model._emb_in.cpu().numpy(),
+                model._emb_out.cpu().numpy())
+
+    runs = []
+    peak = host_peak_gib()
+    for overlap in (False, True, False):
+        cluster = LocalCluster(MA_RANKS, argv=["-ma=true"],
+                               device=str(device))
+        cluster.timeout = 900.0
+        Dashboard.reset()
+        kernels.reset_launch_counts()
+        out = cluster.run(lambda r, o=overlap: body(r, o))
+        stall = Dashboard.get("MA_COMM_STALL")
+        wall = max(o[0] for o in out)
+        words = sum(o[1] for o in out)
+        mode = "overlap" if overlap else "sync"
+        log(f"[{path} {mode}] {card} | {MA_RANKS} ranks x "
+            f"{MA_RANK_GROUPS} groups of {MA_G} steps of {C} centers in "
+            f"{wall:.3f}s | {words / wall:.0f} words/s (host-bound: every "
+            f"average copies both tables to the host and back) | "
+            f"{out[0][4]} averages a rank | MA_COMM_STALL {stall.count} "
+            f"waits, {stall.elapse:.1f} ms | avg loss "
+            f"{[round(o[2] / max(o[3], 1), 4) for o in out]}")
+        counts = kernels.launch_counts()
+        log(f"[{path} {mode}] kernel launches "
+            f"{ {k: v for k, v in counts.items() if v} }")
+        if not all(np.isfinite(o[5]).all() and np.isfinite(o[6]).all()
+                   and o[4] > 0 for o in out):
+            raise AssertionError(f"{path} {mode}: non-finite tables or no "
+                                 f"average")
+        missing = [k for k in PS_KERNELS if counts[k] <= 0] \
+            if device.type == "cuda" else []
+        if missing:
+            raise AssertionError(f"{path} {mode} never launched {missing}")
+        if runs:   # the later runs: their differences from the first
+            out = [[max_diff(np, a, b) for a, b in zip(first[5:], o[5:])]
+                   for first, o in zip(runs[0], out)]
+        runs.append(out)
+    log(f"[{path}] host peak resident memory {host_peak_gib():.2f} GiB "
+        f"(before the path: {peak:.2f} GiB)")
+    for rank in range(MA_RANKS):
+        for i, name in enumerate(("emb_in", "emb_out")):
+            modes, spread = runs[1][rank][i], runs[2][rank][i]
+            log(f"[{path}] rank {rank} {name}: sync vs overlap max abs "
+                f"diff {modes:g}; sync vs sync {spread:g}")
+            if modes > 10 * spread:
+                raise AssertionError(
+                    f"{path}: rank {rank} {name} differs more between sync "
+                    f"and overlap ({modes:g}) than between two sync runs "
+                    f"({spread:g})")
+    return [], {}
+
+
+def run_ma_phase(torch, np, mv, device, dictionary, tokenized, card: str,
+                 workdir: str, profile_dir: str, dim: int, scale_down: int):
+    """Phase 12: model averaging — ``ma_mesh4`` (the device MA group),
+    ``ma_sgd4`` (``MASGDStep``) and ``ma_ranks`` (``MACorpusTrainer``
+    over an ``-ma`` cluster). Returns (kernel results, launch counts per
+    path)."""
+    results, counts = ma_mesh_path(torch, np, device, dictionary, tokenized,
+                                   card, workdir, profile_dir, dim,
+                                   scale_down)
+    for more in (ma_sgd_path(torch, np, device, card),
+                 ma_ranks_path(torch, np, device, dictionary, tokenized,
+                               card, dim, scale_down)):
+        results += more[0]
+        counts.update(more[1])
+        free(torch, device)
+    return results, counts
+
+
 def kernels_line(results, counts):
     """One entry a (path, kernel): the check at that path's shapes and
     the launches of that path's own counted run."""
@@ -2894,6 +3333,9 @@ def main(argv=None) -> int:
                              "into DIR)")
     parser.add_argument("--multiserver-only", action="store_true",
                         help="build, then run phase 11 alone on the "
+                             "bench corpus (no result line)")
+    parser.add_argument("--ma-only", action="store_true",
+                        help="build, then run phase 12 alone on the "
                              "bench corpus (no result line)")
     args = parser.parse_args(argv)
     import numpy as np
@@ -2929,10 +3371,11 @@ def main(argv=None) -> int:
     dim = 16 if rehearsal else DIM
     with tempfile.TemporaryDirectory(prefix="mv_chip_smoke_") as workdir:
         from multiverso_tpu_torch.models.wordembedding import synthetic
-        if args.multiserver_only:
+        if args.multiserver_only or args.ma_only:
             dictionary, tokenized = bench_corpus(
                 workdir, sentences or synthetic.SENTENCES)
-            results, counts = run_multiserver_phase(
+            phase = run_ma_phase if args.ma_only else run_multiserver_phase
+            results, counts = phase(
                 torch, np, mv, device, dictionary, tokenized, card, workdir,
                 args.profile, dim, 64 if rehearsal else 1)
             print(json.dumps(kernels_line(results, counts)), flush=True)
@@ -2989,7 +3432,8 @@ def main(argv=None) -> int:
                   lambda: run_table_phase(torch, np, mv, device, card,
                                           workdir, args.profile,
                                           rehearsal),
-                  lambda: run_multiserver_phase(torch, np, mv, *common))
+                  lambda: run_multiserver_phase(torch, np, mv, *common),
+                  lambda: run_ma_phase(torch, np, mv, *common))
         for number, phase in enumerate(phases, 6):
             t0 = time.perf_counter()
             phase_results, phase_counts = phase()

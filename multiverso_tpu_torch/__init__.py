@@ -82,3 +82,9 @@ def server_id() -> int:
 def set_flag(name: str, value) -> None:
     """MV_SetFlag (ref: src/multiverso.cpp:48-51)."""
     _set_flag(name, value)
+
+
+def aggregate(data):
+    """MV_Aggregate: sum-allreduce a host array across ranks (ma mode;
+    ref: src/multiverso.cpp:53-56, net::Allreduce src/net.cpp:27-35)."""
+    return current_zoo().net.allreduce(data)

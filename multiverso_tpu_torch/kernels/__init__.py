@@ -35,6 +35,10 @@ row_rule_apply     ``rules.py``              ``Momentum/AdaGrad/DCASGDRule.
                                              rows`` via ``apply_rows`` (B12)
 rows_apply_gather  ``rules.py``              ``UpdateEngine.
                                              apply_rows_gather`` (B3)
+mesh_allreduce     ``mesh.py``               ``psum``/``pmean`` of
+                                             ``parallel/collective.py``,
+                                             ``MASGDStep``,
+                                             ``_ma_group_fn`` (B16)
 =================  ========================  ============================
 
 A wrapper given a CUDA tensor launches its kernel (built at first use
@@ -49,6 +53,7 @@ from typing import Dict
 from .cbow import banded_cbow_grad
 from .hs import banded_hs_sg_grad, hs_cbow_grad
 from .logreg import sparse_lr_apply, sparse_lr_forward
+from .mesh import mesh_allreduce
 from .pair import pair_offset_grad
 from .pairlist import pairlist_hs_grad, pairlist_ns_grad
 from .rows import (row_gather, row_gather_bounded, row_scatter_add,
@@ -77,6 +82,7 @@ WRAPPERS = {
     "row_scatter_add_bounded": row_scatter_add_bounded,
     "segment_merge": segment_merge,
     "segment_split": segment_split,
+    "mesh_allreduce": mesh_allreduce,
 }
 
 

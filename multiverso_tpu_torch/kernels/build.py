@@ -54,6 +54,7 @@ SIGNATURES = {
                               _P],
     "mv_row_scatter_add_bounded": [_P, _I64, _I64, _P, _I64, _P, _I, _F,
                                    _I64, _I64, _P],
+    "mv_mesh_allreduce": [_P, _I, _I64, _I, _I, _P, _P],
     "mv_segment_merge": [_P, _P, _I, _P, _P, _I64, _I, _P, _P],
     "mv_segment_split": [_P, _I64, _I, _P, _P, _I, _P, ctypes.c_uint32, _P,
                          _P],

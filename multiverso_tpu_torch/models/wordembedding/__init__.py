@@ -7,5 +7,6 @@ from .device_train import (DeviceCorpusTrainer,  # noqa: F401
                            PSDeviceCorpusTrainer, TorchDraws)
 from .dictionary import Dictionary  # noqa: F401
 from .huffman import HuffmanTree, build_huffman  # noqa: F401
+from .ma_train import MACorpusTrainer  # noqa: F401
 from .model import (PSWord2Vec, Word2Vec, Word2VecConfig,  # noqa: F401
                     build_alias)

@@ -31,6 +31,10 @@ Two trainers:
   card and cut into one calibrated segment a server (K18), whose replies
   K17 puts back in place.
 
+``_ma_group_fn`` is the model-average (``-ma``) group over a mesh of
+replica slots (B16): each slot runs the local SGNS steps on its own
+replica and corpus shard, then K19 averages the replicas.
+
 The BANDED formulation is the reference's: the contexts of C
 consecutive centers all lie in ``kept[base-W : base+C+W]``, so a step
 gathers those C+2W rows once and forms the 2W context logits as shifted
@@ -50,6 +54,7 @@ from __future__ import annotations
 
 import functools
 import math
+from types import SimpleNamespace
 from typing import Optional, Tuple
 
 import numpy as np
@@ -57,6 +62,7 @@ import torch
 
 from ...kernels.cbow import banded_cbow_grad
 from ...kernels.hs import banded_hs_sg_grad, hs_cbow_grad
+from ...kernels.mesh import mesh_allreduce
 from ...kernels.objective import offsets
 from ...kernels.pair import pair_offset_grad
 from ...kernels.rows import row_gather, row_scatter_add
@@ -64,6 +70,7 @@ from ...kernels.segments import segment_merge, segment_split
 from ...kernels.sgns import banded_sgns_grad
 from ...kernels.subsample import subsample_compact
 from ...runtime import device_lock
+from ...sharding import mesh as meshlib
 from ...util.dashboard import monitor
 from .data import TokenizedCorpus
 from .model import draw_negs
@@ -604,6 +611,92 @@ def _plan(config, tables, C: int, B: int, per_pair: bool, draws,
              banded_sgns_grad, (pmask, W, K, B, scale))], pmask
 
 
+def _run_subs(emb_in, emb_out, subs):
+    """Run a step's sub-steps (``_plan``) on the tables ``emb_in`` and
+    ``emb_out``: (loss, examples) as device scalars."""
+    D = emb_in.shape[1]
+    loss, examples = None, None
+    for in_ids, out_ids, kernel, args in subs:
+        # Each sub-step gathers from the live tables after the previous
+        # one's scatter (one stream, launch order) and scatter-adds
+        # scale * grad (scale = -lr) straight back IN PLACE: the
+        # reference donates the table buffers to its group program and
+        # gets new ones back; updating in place stands in for that
+        # donation.
+        d_in, d_out, sub_loss, sub_examples = kernel(
+            row_gather(emb_in, in_ids, D),
+            row_gather(emb_out, out_ids, D), *args)
+        row_scatter_add(emb_in, in_ids, d_in)
+        row_scatter_add(emb_out, out_ids, d_out)
+        if loss is None:
+            loss, examples = sub_loss, sub_examples
+        else:
+            loss, examples = loss + sub_loss, examples + sub_examples
+    return loss, examples
+
+
+def _ma_group_fn(mesh, C: int, W: int, K: int, neg_block: int = 1):
+    """Model-average (``-ma``) word2vec over a mesh of replica slots
+    (port of the reference's ``_ma_group_fn``, B16): each slot runs G
+    local SGNS steps against its own REPLICA of the embedding tables on
+    its own CORPUS SHARD, then K19 averages the replicas — the
+    reference's MA mode (train locally, MV_Aggregate; ref:
+    src/zoo.cpp:24,49, src/multiverso.cpp:53-56) with the aggregate a
+    reduction over the slot axis.
+
+    Arguments of the returned function: ``emb_in/emb_out`` [V, D] on
+    the mesh's device (not modified); ``kept/ksent`` [n_slots *
+    n_local], slot s's shard at ``[s * n_local, (s + 1) * n_local)``;
+    ``neg_prob/neg_alias`` the alias tables; ``draws`` one draw
+    provider a slot, each asked ``step_draws(s, i, C, W, (C //
+    neg_block, K), V)`` for step i of slot s — a provider advances in
+    place, so chained groups draw fresh windows (the reference passes
+    and returns one PRNG key a device); ``bases/lrs`` [G] (a padded step
+    has base ``n_kept`` and lr 0); ``n_kept_local`` per-slot kept
+    counts [n_slots]. Returns (averaged emb_in, averaged emb_out, loss,
+    pairs): the mean tables [V, D], and the loss and pair counts summed
+    over each slot's steps, then over the slots in slot order (0-d
+    tensors)."""
+    n = meshlib.device_count(mesh)
+    sgns = SimpleNamespace(window=W, negative=K, hs=False, cbow=False)
+    neg_shape = (C // neg_block, K)
+
+    def group(emb_in, emb_out, kept, ksent, neg_prob, neg_alias, draws,
+              bases, lrs, n_kept_local):
+        if len(draws) != n or kept.numel() % n:
+            raise ValueError(f"{n} slots: one draw provider a slot and a "
+                             f"kept stream that splits evenly")
+        V, D = emb_in.shape
+        n_local = kept.numel() // n
+        n_kept_local = [int(x) for x in n_kept_local]
+        lrs = np.asarray(lrs, np.float32)
+        # The replicated tables, one replica a slot: [n, V, D].
+        reps = [t.unsqueeze(0).expand(n, V, D).clone()
+                for t in (emb_in, emb_out)]
+        sums = []
+        for s in range(n):
+            kept_pad, ksent_pad = _pad_stream(
+                C, W, kept[s * n_local:(s + 1) * n_local],
+                ksent[s * n_local:(s + 1) * n_local])
+            steps = []
+            for i, (base, lr) in enumerate(zip(bases, lrs)):
+                subs, _ = _plan(sgns, (neg_prob, neg_alias), C, neg_block,
+                                False, draws[s].step_draws(
+                                    s, i, C, W, neg_shape, V),
+                                kept_pad, ksent_pad, n_kept_local[s],
+                                int(base), float(-lr))
+                steps.append(_run_subs(reps[0][s], reps[1][s], subs))
+            sums.append([sum(x[1:], x[0]) for x in zip(*steps)])
+        loss, pairs = (sum(x[1:], x[0]) for x in zip(*sums))
+        # MV_Aggregate: the mean of the trained replicas (the
+        # reference's pmean, out_specs=P()).
+        avg = [mesh_allreduce(r.view(n, V * D), mean=True).view(V, D)
+               for r in reps]
+        return avg[0], avg[1], loss, pairs
+
+    return group
+
+
 def _hs_center_cap(path_len: int, dim: int) -> int:
     """Centers-per-step bound for the HS pipelines: the banded path rows
     are [C+2W, L, D] plus their gradient — cap C so they stay within
@@ -641,28 +734,9 @@ class DeviceCorpusTrainer(_ModeTrainer):
               n_kept: int, scale: float):
         """One training step on the live tables; (loss, examples) as
         device scalars."""
-        emb_in, emb_out = self.model._emb_in, self.model._emb_out
-        D = emb_in.shape[1]
         subs, _ = self._plan(seed, step, kept_pad, ksent_pad, n_kept,
                              scale)
-        loss, examples = None, None
-        for in_ids, out_ids, kernel, args in subs:
-            # Each sub-step gathers from the live tables after the
-            # previous one's scatter (one stream, launch order) and
-            # scatter-adds scale * grad (scale = -lr) straight back IN
-            # PLACE: the reference donates the table buffers to its
-            # group program and gets new ones back; updating in place
-            # stands in for that donation.
-            d_in, d_out, sub_loss, sub_examples = kernel(
-                row_gather(emb_in, in_ids, D),
-                row_gather(emb_out, out_ids, D), *args)
-            row_scatter_add(emb_in, in_ids, d_in)
-            row_scatter_add(emb_out, out_ids, d_out)
-            if loss is None:
-                loss, examples = sub_loss, sub_examples
-            else:
-                loss, examples = loss + sub_loss, examples + sub_examples
-        return loss, examples
+        return _run_subs(self.model._emb_in, self.model._emb_out, subs)
 
     def train_epoch(self, seed: int, group_hook=None,
                     max_steps: int = 0) -> Tuple[float, float]:

@@ -1,0 +1,136 @@
+"""Cross-rank model-average word2vec: the ``-ma`` training path.
+
+Port of ``multiverso_tpu/models/wordembedding/ma_train.py``. The
+reference's ``-ma`` mode trains each rank's full table replica locally
+and periodically calls ``MV_Aggregate`` on the parameter buffer (ref:
+src/zoo.cpp:49, Test/test_allreduce.cpp:10-19). ``MACorpusTrainer``
+wires that loop on top of the device corpus pipeline:
+
+- each rank runs its own ``DeviceCorpusTrainer`` over its corpus shard
+  (the tables on the card, K1-K4);
+- every ``avg_every`` dispatched groups the two tables are copied to
+  the host and model-averaged across ranks over the fabric
+  (``parallel/ma.py``);
+- with ``overlap=True`` the averager double-buffers: the allreduce of
+  snapshot i runs on a background thread while groups i+1 compute on
+  the card, and the collected average is corrected by the local
+  progress made meanwhile (``MAAverager`` semantics). Sync and
+  overlapped runs apply the SAME update at the SAME point; only the
+  ``MA_COMM_STALL`` wall time differs.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from ...parallel.ma import MAAverager, MAShardedAverager
+from .data import TokenizedCorpus
+from .device_train import DeviceCorpusTrainer
+
+
+class MACorpusTrainer:
+    """Model-average wrapper around :class:`DeviceCorpusTrainer`.
+
+    All ranks must construct their model with the same config seed (MA
+    assumes replicas start identical) and call ``train_epoch`` the same
+    number of times with the same group counts — the averages are
+    matched positionally across ranks, like every collective.
+
+    ``sharded=True`` switches to delta-vs-last-average MA over the
+    sharded collective (:class:`MAShardedAverager`): each round ships
+    only the parameters' change since the last average — sparse once
+    training localizes. The submit/collect call points are identical,
+    so sync and overlapped sharded runs stay bit-identical to each
+    other exactly like the dense mode's."""
+
+    def __init__(self, model, tokenized: TokenizedCorpus,
+                 avg_every: int = 4, overlap: bool = True, zoo=None,
+                 sharded: bool = False, **trainer_kw):
+        self.model = model
+        self.avg_every = max(1, int(avg_every))
+        self.overlap = bool(overlap)
+        self.sharded = bool(sharded)
+        self._inner = DeviceCorpusTrainer(model, tokenized, **trainer_kw)
+        self._averager = MAShardedAverager(zoo) if self.sharded \
+            else MAAverager(zoo)
+        self.comm_rounds = 0
+
+    # -- host <-> device parameter shuttling --
+    def _params_host(self) -> np.ndarray:
+        """One flat float32 buffer [emb_in | emb_out] — the shape the
+        allreduce takes. The copy to the host syncs the stream, which is
+        the natural overlap boundary: everything launched since
+        ``submit`` ran while the previous average was in flight."""
+        m = self.model
+        n_in = m._emb_in.numel()
+        flat = np.empty(n_in + m._emb_out.numel(), np.float32)
+        host = torch.from_numpy(flat)
+        host[:n_in].copy_(m._emb_in.reshape(-1))
+        host[n_in:].copy_(m._emb_out.reshape(-1))
+        return flat
+
+    def _apply(self, flat: np.ndarray) -> None:
+        """Copy the average back into the model's tables, in place on
+        ``model.device`` (the reference replaces its arrays)."""
+        m = self.model
+        n_in = m._emb_in.numel()
+        flat = torch.from_numpy(np.ascontiguousarray(flat, np.float32))
+        m._emb_in.copy_(flat[:n_in].view(m._emb_in.shape))
+        m._emb_out.copy_(flat[n_in:].view(m._emb_out.shape))
+
+    def _average_point(self) -> None:
+        now = self._params_host()
+        if self._averager.busy:
+            # avg_i + (now - snapshot_i): cross-rank average of block i
+            # plus the local progress made while it streamed.
+            now = self._averager.collect(current=now)
+            self._apply(now)
+        future = self._averager.submit(now)
+        if not self.overlap:
+            # Sync mode: pay the whole collective as a stall right here.
+            # The RESULT is applied at the same later point as in
+            # overlap mode, so the trajectories stay bit-identical.
+            future.wait()
+        self.comm_rounds += 1
+
+    def train_epoch(self, seed: int, group_hook=None, max_steps: int = 0,
+                    group_quota: int = 0) -> Tuple[float, float]:
+        """One local epoch with cross-rank averaging every ``avg_every``
+        groups. Collectives are matched positionally, so EVERY rank must
+        reach the same averaging points: with equal corpus shards the
+        group counts line up naturally; with UNEVEN shards pass
+        ``group_quota`` = the LARGEST rank's groups-per-epoch — ranks
+        whose local epoch ends early keep joining the remaining averages
+        with their (finished) parameters instead of leaving the longer
+        ranks' collectives hanging until the allreduce timeout."""
+        groups = 0
+
+        def hook(words: float) -> None:
+            nonlocal groups
+            groups += 1
+            if groups % self.avg_every == 0:
+                self._average_point()
+            if group_hook is not None:
+                group_hook(words)
+
+        out = self._inner.train_epoch(seed, group_hook=hook,
+                                      max_steps=max_steps)
+        while groups < group_quota:
+            groups += 1
+            if groups % self.avg_every == 0:
+                self._average_point()
+        return out
+
+    def finish(self) -> None:
+        """Fold the in-flight average in (call once after the last
+        epoch; otherwise the final local block never merges)."""
+        if self._averager.busy:
+            self._apply(self._averager.collect(
+                current=self._params_host()))
+
+    @property
+    def kept_words_trained(self) -> int:
+        return self._inner.kept_words_trained

@@ -1,0 +1,349 @@
+"""Model-average (MA) mode: the PS-bypass training path.
+
+Port of ``multiverso_tpu/parallel/ma.py``. The reference's ``-ma`` flag
+skips the parameter server entirely and the app calls ``MV_Aggregate``
+(MPI allreduce) on its parameter buffer each step (ref: src/zoo.cpp:49,
+src/multiverso.cpp:53-56, Test/test_allreduce.cpp:10-19). Two layers:
+
+- control plane (host, cross-rank): ``model_average`` — transport
+  allreduce of a host array divided by the worker count — plus its
+  overlapped form: ``model_average_async`` / ``MAAverager`` run the
+  allreduce of step i's parameters on a background thread while step
+  i+1's local compute runs on the card, with the ``MA_COMM_STALL``
+  dashboard monitor recording only the time the trainer actually
+  blocked; ``sharded_model_average`` and ``MAShardedAverager`` the same
+  over the sharded collective. Host numpy, copied operation for
+  operation from the reference, so results are bit-identical to its;
+- data plane (mesh): ``MASGDStep`` — each replica slot computes
+  gradients on its microbatch, K19 reduces them over the slots
+  (``kernels/mesh.py``), then one SGD update: the collapsed form of
+  train-locally-then-average.
+"""
+
+from __future__ import annotations
+
+import threading
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from ..kernels.mesh import mesh_allreduce
+from ..runtime import thread_roles
+from ..runtime.zoo import current_zoo
+from ..sharding import mesh as meshlib
+from ..util.dashboard import monitor
+
+
+def model_average(data: np.ndarray, zoo=None) -> np.ndarray:
+    """Cross-rank parameter average: allreduce / num_ranks
+    (ref usage: binding apps divide MV_Aggregate output by worker count).
+    Blocking — the whole wall time is communication the caller could
+    not hide, so it all lands on the MA_COMM_STALL monitor (the async
+    path below only charges its residual wait there). Collectives are
+    FIFO-ordered per endpoint inside ``net.allreduce``, so mixing this
+    with ``model_average_async`` (or ``mv.aggregate``) keeps them
+    paired positionally across ranks."""
+    zoo = zoo if zoo is not None else current_zoo()
+    with monitor("MA_COMM_STALL"):
+        total = zoo.net.allreduce(np.asarray(data))
+    return total / zoo.net.size
+
+
+class MAFuture:
+    """Handle for one in-flight background model average."""
+
+    def __init__(self) -> None:
+        self._event = threading.Event()
+        self._result: Optional[np.ndarray] = None
+        self._error: Optional[BaseException] = None
+
+    def _set(self, result: np.ndarray) -> None:
+        self._result = result
+        self._event.set()
+
+    def _set_error(self, exc: BaseException) -> None:
+        self._error = exc
+        self._event.set()
+
+    def done(self) -> bool:
+        return self._event.is_set()
+
+    def result(self, timeout: Optional[float] = None) -> np.ndarray:
+        """The averaged array; blocks until the background allreduce
+        lands. Only the BLOCKED time is charged to MA_COMM_STALL — a
+        call after the collective already finished records ~0, which is
+        exactly the overlap win being measured."""
+        if not self._event.is_set():
+            with monitor("MA_COMM_STALL"):
+                if not self._event.wait(timeout=timeout):
+                    raise TimeoutError(
+                        "model_average_async: collective did not "
+                        f"complete within {timeout}s")
+        if self._error is not None:
+            raise RuntimeError(
+                "model_average_async failed in background") from self._error
+        return self._result
+
+    wait = result
+
+
+def model_average_async(data: np.ndarray, zoo=None, *,
+                        copy: bool = True) -> MAFuture:
+    """Start a cross-rank parameter average in a background thread and
+    return immediately.
+
+    The input is snapshotted (``copy=False`` skips that for callers
+    that hand over a buffer they will not touch again, e.g.
+    ``MAAverager`` passing its own private snapshot), so the caller
+    keeps training on its live buffer while the allreduce runs on a
+    background thread. Submissions execute in CALL order:
+    the endpoint's FIFO slot is reserved HERE on the calling thread
+    and the worker runs its collective in that slot — without this,
+    two freshly spawned workers could enter the endpoint in swapped
+    order on one rank only, cross-pairing same-generation collectives
+    across ranks. Every rank must still start the SAME averages in the
+    SAME order (they are matched positionally, as with the blocking
+    form)."""
+    zoo = zoo if zoo is not None else current_zoo()
+    snapshot = np.array(data, copy=True) if copy else np.asarray(data)
+    future = MAFuture()
+    slot = zoo.net.reserve_collective_slot()
+
+    def run() -> None:
+        try:
+            future._set(zoo.net.allreduce(snapshot, slot=slot)
+                        / zoo.net.size)
+        except BaseException as exc:  # noqa: BLE001 - delivered to result()
+            future._set_error(exc)
+
+    try:
+        thread_roles.spawn(thread_roles.BACKGROUND, target=run,
+                           name=f"mv-ma-avg-r{zoo.net.rank}")
+    except BaseException:
+        # The reserved slot must not leak: an unserved ticket would
+        # block every later collective on this endpoint forever. Serve
+        # it in turn as a no-op (waits for predecessors, then advances
+        # the line) before re-raising the spawn failure.
+        zoo.net._run_collective(lambda: None, slot)
+        raise
+    return future
+
+
+class MAAverager:
+    """Double-buffered model averaging: one average in flight while the
+    trainer computes the next block.
+
+    Protocol (both modes apply the average at the SAME point, so a sync
+    and an overlapped run are bit-identical — only where the
+    wall-clock stall lands differs):
+
+        submit(params_i)        # allreduce starts streaming
+        ... train block i+1 ...     # device compute hides the wire
+        avg = collect(current=params_now)
+        # avg + (params_now - params_i): the cross-rank average plus
+        # the local progress made while it streamed (BMUF-style block
+        # continuation, degenerating to plain averaging when collect
+        # follows submit immediately)
+    """
+
+    def __init__(self, zoo=None):
+        self._zoo = zoo if zoo is not None else current_zoo()
+        self._future: Optional[MAFuture] = None
+        self._snapshot: Optional[np.ndarray] = None
+
+    @property
+    def busy(self) -> bool:
+        return self._future is not None
+
+    def submit(self, data: np.ndarray) -> MAFuture:
+        if self._future is not None:
+            raise RuntimeError(
+                "MAAverager: collect() the in-flight average before "
+                "submitting the next one (double-buffer depth is 1)")
+        self._snapshot = np.array(data, copy=True)
+        # copy=False: the snapshot above is already private to this
+        # averager (it is only read again in collect's delta), so a
+        # second O(model) copy inside the async submit would be waste.
+        self._future = model_average_async(self._snapshot, self._zoo,
+                                           copy=False)
+        return self._future
+
+    def collect(self, current: Optional[np.ndarray] = None,
+                timeout: Optional[float] = None) -> np.ndarray:
+        """Block for the in-flight average (residual wait lands on
+        MA_COMM_STALL). With ``current``, returns the average corrected
+        by the local progress since ``submit``; bare, returns the
+        average itself."""
+        if self._future is None:
+            raise RuntimeError("MAAverager: nothing submitted")
+        # Resolve BEFORE clearing state: a timeout must leave the
+        # averager busy (the collective is still in flight and peers
+        # WILL apply it), so the caller can retry collect() instead of
+        # silently diverging from the other replicas.
+        avg = self._future.result(timeout=timeout)
+        snapshot = self._snapshot
+        self._future = None
+        self._snapshot = None
+        if current is None:
+            return avg
+        return avg + (np.asarray(current) - snapshot)
+
+
+def sharded_model_average(data: np.ndarray, zoo=None) -> np.ndarray:
+    """Blocking cross-rank average through the sharded collective
+    (``net.sharded_average``; on the in-process fabric the rank-ordered
+    sum divided by the size). Same MA_COMM_STALL accounting and
+    positional-matching contract as ``model_average``."""
+    zoo = zoo if zoo is not None else current_zoo()
+    with monitor("MA_COMM_STALL"):
+        return zoo.net.sharded_average(np.asarray(data))
+
+
+def sharded_model_average_async(data: np.ndarray, zoo=None, *,
+                                copy: bool = True) -> MAFuture:
+    """``model_average_async`` over the sharded collective: snapshots
+    the input (unless ``copy=False`` hands over a private buffer),
+    reserves the endpoint's FIFO slot on the calling thread, and
+    resolves the future with the averaged array — the divide already
+    applied shard-locally inside the collective."""
+    zoo = zoo if zoo is not None else current_zoo()
+    snapshot = np.array(data, copy=True) if copy else np.asarray(data)
+    future = MAFuture()
+    slot = zoo.net.reserve_collective_slot()
+
+    def run() -> None:
+        try:
+            future._set(zoo.net.sharded_average(snapshot, slot=slot))
+        except BaseException as exc:  # noqa: BLE001 - delivered to result()
+            future._set_error(exc)
+
+    try:
+        thread_roles.spawn(thread_roles.BACKGROUND, target=run,
+                           name=f"mv-ma-shavg-r{zoo.net.rank}")
+    except BaseException:
+        # Serve the reserved ticket as a no-op before re-raising, or
+        # every later collective on this endpoint blocks forever.
+        zoo.net._run_collective(lambda: None, slot)
+        raise
+    return future
+
+
+class MAShardedAverager(MAAverager):
+    """Delta-vs-last-average MA over the sharded sparse collective.
+
+    ``MAAverager`` ships the FULL parameter buffer every round. This
+    variant keeps a reference copy of the last cross-rank average
+    (bit-identical on every rank, since it is rebuilt from collective
+    results) and ships only ``params - reference`` through
+    ``net.sharded_average``: once training localizes, most entries are
+    exactly zero (the reference's wire codec then sends them sparse;
+    the in-process fabric has no wire).
+
+    Round protocol (same call points as ``MAAverager``, so
+    ``MACorpusTrainer`` swaps it in unchanged and sync/overlap runs
+    stay bit-identical):
+
+        submit(params_i):  delta_i = params_i - ref   (ref None on the
+                           first round: the delta IS params_i and ref
+                           starts at the first average — dense once,
+                           exact regardless of how far replicas have
+                           already diverged)
+        collect(current):  ref += mean(delta)  (identical on all ranks)
+                           returns ref + (current - params_i)
+
+    Memory: one extra full-size reference buffer per rank (constant in
+    world size)."""
+
+    def __init__(self, zoo=None):
+        super().__init__(zoo)
+        self._ref: Optional[np.ndarray] = None
+
+    def submit(self, data: np.ndarray) -> MAFuture:
+        if self._future is not None:
+            raise RuntimeError(
+                "MAShardedAverager: collect() the in-flight average "
+                "before submitting the next one (double-buffer depth "
+                "is 1)")
+        self._snapshot = np.array(data, dtype=np.float32, copy=True)
+        delta = self._snapshot if self._ref is None \
+            else self._snapshot - self._ref
+        # copy=False: the snapshot (and therefore the first-round
+        # delta) is already private to this averager, and a fresh
+        # ``snapshot - ref`` array is private too.
+        self._future = sharded_model_average_async(delta, self._zoo,
+                                                   copy=False)
+        return self._future
+
+    def collect(self, current: Optional[np.ndarray] = None,
+                timeout: Optional[float] = None) -> np.ndarray:
+        if self._future is None:
+            raise RuntimeError("MAShardedAverager: nothing submitted")
+        # Resolve BEFORE clearing state: a timeout must leave the
+        # averager busy and the reference untouched (peers WILL apply
+        # this round), so the caller can retry collect().
+        avg_delta = self._future.result(timeout=timeout)
+        snapshot = self._snapshot
+        self._future = None
+        self._snapshot = None
+        self._ref = avg_delta if self._ref is None \
+            else self._ref + avg_delta
+        if current is None:
+            # Copy: the reference must stay pristine — it is the
+            # shared baseline every rank's next delta subtracts.
+            return self._ref.copy()
+        return self._ref + (np.asarray(current) - snapshot)
+
+
+class MASGDStep:
+    """Data-parallel SGD step over the mesh's replica slots.
+
+    ``loss_fn(params: dict[str, Tensor], batch) -> scalar tensor``;
+    batches arrive with the leading axis split over the slots. Each
+    slot's loss and gradients come from ``torch.autograd.grad`` on its
+    microbatch, then every parameter takes ``p - lr * g`` with ``lr`` a
+    0-d float32 tensor; the reported loss is the slots' mean. Params
+    stay replicated; the collectives (K19) are the only cross-slot
+    traffic.
+
+    ``g`` is the SUM of the slots' gradients, as the reference computes
+    it: it differentiates with respect to params replicated into
+    ``shard_map`` (``in_specs=P()``), and JAX transposes that implicit
+    broadcast into a ``psum`` over the mesh, so each device's gradient
+    is already the sum, and the ``pmean`` of that replicated value that
+    follows leaves it as it is (``tests/test_torch_collectives.py``
+    holds the port to the reference step by step).
+    """
+
+    def __init__(self, loss_fn: Callable, mesh=None, lr: float = 0.01):
+        self.mesh = mesh if mesh is not None else meshlib.local_mesh()
+        self.lr = lr
+        self.loss_fn = loss_fn
+
+    def __call__(self, params, batch):
+        dev = self.mesh.device
+        n = meshlib.device_count(self.mesh)
+        if not isinstance(batch, torch.Tensor):
+            batch = torch.from_numpy(np.ascontiguousarray(batch))
+        batch = batch.to(dev)
+        if batch.dim() == 0 or batch.shape[0] % n:
+            raise ValueError(f"batch of {tuple(batch.shape)} does not "
+                             f"split over {n} slots")
+        micro = batch.reshape(n, batch.shape[0] // n, *batch.shape[1:])
+        names = list(params)
+        values = [torch.as_tensor(params[k], device=dev) for k in names]
+        grads = [[] for _ in names]
+        losses = []
+        for s in range(n):
+            leaves = [v.detach().requires_grad_(True) for v in values]
+            loss = self.loss_fn(dict(zip(names, leaves)), micro[s])
+            for acc, g in zip(grads, torch.autograd.grad(loss, leaves)):
+                acc.append(g.reshape(-1))
+            losses.append(loss.detach().reshape(1))
+        lr = torch.full((), self.lr, dtype=torch.float32, device=dev)
+        new_params = {}
+        for k, v, g in zip(names, values, grads):
+            total = mesh_allreduce(torch.stack(g))[0]
+            new_params[k] = v.detach() - lr * total.reshape(v.shape)
+        loss = mesh_allreduce(torch.stack(losses), mean=True)[0, 0]
+        return new_params, float(loss)

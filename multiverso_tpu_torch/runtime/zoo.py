@@ -10,7 +10,10 @@ wakes every rank blocked on a failed sibling). Start order mirrors the
 reference
 (ref: src/zoo.cpp:73-102): controller, communicator, register with the
 controller to learn the rank→worker_id/server_id map, then server and
-worker actors, then a barrier.
+worker actors, then a barrier. With ``-ma=true`` (model-average mode)
+the zoo starts no parameter server at all: no actors, no registration,
+no barrier; the ranks meet only in the fabric's collectives
+(``mv.aggregate``, ``parallel/ma.py``).
 
 The zoo owns the ``torch.device`` that every table of this rank keeps
 its storage on (``mv.init(argv, device=...)``): ``cuda:0`` unless the
@@ -42,12 +45,12 @@ from .net import LocalFabric, NetInterface
 from .server import Server
 from .worker import Worker
 
+define_string("ps_role", "default", "none / worker / server / default(all)")
+define_bool("ma", False, "model-average mode: skip the parameter server")
 # Flags of reference features that are not ported yet. Defined here (with
 # the reference's defaults) so that they parse; a non-default value
 # raises in Zoo.start.
 define_string("machine_file", "", "TCP mesh machine file (not ported)")
-define_string("ps_role", "default", "none / worker / server / default(all)")
-define_bool("ma", False, "model-average mode: skip the parameter server")
 define_bool("sync", False, "BSP sync server")
 define_bool("rejoin", False, "restarted rank rejoining a live cluster")
 define_int("rpc_retry_max", 0, "retries of a Get/Add after a lost peer")
@@ -68,7 +71,6 @@ define_bool("one_bit_push", False, "1-bit quantized matrix pushes")
 #: flag -> (ROADMAP item, the reference feature it selects)
 UNPORTED_FLAGS: Dict[str, tuple] = {
     "machine_file": ("A9", "the multi-process TCP transport"),
-    "ma": ("A10", "model-average mode"),
     "sync": ("A5", "the BSP sync server"),
     "rejoin": ("A9", "rank rejoin (fault tolerance)"),
     "rpc_retry_max": ("A9", "peer-loss retries (fault tolerance)"),
@@ -91,7 +93,7 @@ UNPORTED_FLAGS: Dict[str, tuple] = {
 
 #: Defaults of UNPORTED_FLAGS (the reference's CANONICAL_FLAGS values).
 _UNPORTED_DEFAULTS = {
-    "machine_file": "", "ma": False, "sync": False, "rejoin": False,
+    "machine_file": "", "sync": False, "rejoin": False,
     "rpc_retry_max": 0, "rpc_timeout_s": 0.0,
     "heartbeat_interval_s": 0.0, "snapshot_dir": "",
     "snapshot_interval_s": 0.0, "replica_hot_rows": 0,
@@ -174,6 +176,7 @@ class Zoo:
         self._server_tables: List = []
         self._aborted = False
         self._role_override: Optional[str] = None
+        self._ma = False
         self.device = None
 
     # -- lifecycle (ref: src/zoo.cpp:41-60) --
@@ -193,11 +196,13 @@ class Zoo:
                 f"roles across processes need the multi-process runtime "
                 f"(ROADMAP A9)")
         self._role_override = role
-        try:
-            self._start_ps()
-        except BaseException:
-            self._teardown_partial_start()
-            raise
+        self._ma = bool(get_flag("ma"))
+        if not self._ma:
+            try:
+                self._start_ps()
+            except BaseException:
+                self._teardown_partial_start()
+                raise
         self._started = True
         log.debug("Rank %d: multiverso started on %s", self.rank,
                   self.device)
@@ -219,6 +224,19 @@ class Zoo:
         """ref: src/zoo.cpp:52-60,104-114."""
         if not self._started:
             return
+        if self._ma:
+            # No actors to stop (the reference's runtime/zoo.py:287): the
+            # endpoint is only the collectives'.
+            if finalize_net:
+                self._net.finalize()
+        else:
+            self._stop_ps(finalize_net)
+        self._actors.clear()
+        self._server_tables.clear()
+        self._started = False
+        log.debug("Rank %d: multiverso shut down", self.rank)
+
+    def _stop_ps(self, finalize_net: bool) -> None:
         # After an abort the barrier would block on peers that are gone;
         # tear the actors down directly.
         if not self._aborted:
@@ -232,10 +250,6 @@ class Zoo:
         comm = self._actors.get(actors.COMMUNICATOR)
         if comm is not None:
             comm.stop(finalize_net=finalize_net)
-        self._actors.clear()
-        self._server_tables.clear()
-        self._started = False
-        log.debug("Rank %d: multiverso shut down", self.rank)
 
     def _start_ps(self) -> None:
         role = int(role_from_string(self._role_override

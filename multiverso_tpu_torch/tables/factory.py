@@ -16,6 +16,7 @@ import numpy as np
 
 from ..core.node import is_server, is_worker
 from ..runtime.zoo import current_zoo
+from ..util.configure import get_flag
 from .array_table import ArrayServer, ArrayWorker
 from .kv_table import KVServer, KVWorker
 from .matrix_table import MatrixServer, MatrixTableOption, MatrixWorker
@@ -23,7 +24,10 @@ from .matrix_table import MatrixServer, MatrixTableOption, MatrixWorker
 
 def _table_role(zoo) -> int:
     if not zoo._nodes:
-        raise RuntimeError("no parameter server on this rank")
+        hint = " (-ma=true skips the parameter server; flags persist " \
+            "across init/shutdown like the reference's statics)" \
+            if get_flag("ma") else ""
+        raise RuntimeError(f"no parameter server on this rank{hint}")
     return zoo._nodes[zoo.rank].role
 
 

@@ -90,6 +90,9 @@ def _device_keys_roundtrip(mv, rank):
     ids_np = np.array([[7, 1], [1, 9]], np.int32)
     ids = dev(mv, ids_np)
     got = host(table.get_rows_device(ids))
+    # Every rank's Get lands before rank 0's Add (the reference test has
+    # no barrier here, so a slow rank's Get could see the Add).
+    mv.current_zoo().barrier()
     if rank == 0:
         table.add_rows(ids, dev(mv, np.ones((2, 2, 3), np.float32)))
     mv.current_zoo().barrier()
