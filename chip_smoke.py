@@ -15,11 +15,17 @@ Phases, each fatal on failure:
    block;
 3. hold every kernel against its plain PyTorch version on the card, at
    the shapes the main path gives it (the corpus for K1, block 0's ids
-   into both tables for K2-K4; K3 bit-exact on deltas rounded to a grid
-   on which every sum is exact in any order), and time kernel, plain
+   into both tables for K2-K4; K3, wherever it is checked, bit for bit
+   run against run and against the plain version of its own summation
+   order on the raw deltas, bit for bit against the plain version on
+   deltas rounded to a grid on which every sum is exact in any order,
+   and within a stated bound of the plain version on a CPU copy), and
+   time kernel (K3: with its sort, and alone), plain
    version and — where one PyTorch call computes the same function —
    that call, with torch.profiler; also K4 and K5 with a negative block
-   wider than a thread block, at a small width;
+   wider than a thread block, at a small width, and every form of K2,
+   K3, K15 and K16 (narrow and wide rows, distinct and repeating ids)
+   at widths 1, 3, 50 and 128;
 4. drive the main path — ``train_epoch`` for 8 blocks through the worker
    and server actors — with every launch count set to 0 just before and
    read just after; every kernel must have launched;
@@ -138,11 +144,9 @@ Phases, each fatal on failure:
    device="cuda:0")``, half the corpus a rank, 8 groups of 16 steps
    averaged every 4, with ``overlap=False``, ``overlap=True``, then
    ``overlap=False`` again (words/s, ``MA_COMM_STALL``, the host's peak
-   memory): the two modes apply the same average at the same point, but
-   K3's float atomics make the card's local steps vary from run to run,
-   so each rank's final tables must differ between sync and overlap by
-   no more than 10x what the two sync runs differ (bit-identical when
-   those are; the CPU tests hold the modes bit-identical).
+   memory): the two modes apply the same average at the same point, so
+   each rank's final tables must be bit-identical between sync and
+   overlap and between the two sync runs (K3 is deterministic).
 
 Phases 1-6 are as the second slice left them, the small-input checks
 now also comparing example counts, and K2 and K3 timed over all the
@@ -478,39 +482,119 @@ def on_grid(torch, table, ids, delta):
     return torch.round(table * grid) / grid, torch.round(delta * grid) / grid
 
 
-def check_scatter(torch, cases, D: int, row_bytes: int = 0, rotate=()):
-    """K3 on ``cases``, the step's (table, ids, delta) triples, each
-    rounded ``on_grid``: bit-exact on every triple, duplicate ids and
-    the Zipf head included; timed over all of them, as the step launches
-    them (``rotate``: as in ``check_gather``). The bound counts the ids
-    and rows of the delta, and each table row they reach read and
-    written at ``row_bytes`` (default ``D * 4``; 32 for rows narrower
-    than a sector)."""
+def scatter_cpu_err(torch, table, ids, delta, got):
+    """K3's result ``got`` against the plain version run on a CPU copy of
+    the rows ``ids`` reach (``table`` as it was before): (max abs error,
+    whether every element is within ``2 L 2^-24 (|x0| + sum |delta|)``,
+    L the row's occurrences — twice the first-order bound of a float32
+    sum of L + 1 terms in any order, the kernel's tree of sequential
+    sums and the plain version's sequential sum alike)."""
     from multiverso_tpu_torch.kernels import rows
-    err, nonzero, n_bytes = 0.0, [], 0
+    k = delta.shape[0]
+    flat, ok = rows._wrapped(ids.reshape(-1)[:k], table.shape[0])
+    uniq, inv, counts = torch.unique(flat[ok], return_inverse=True,
+                                     return_counts=True)
+    if uniq.numel() == 0:
+        return 0.0, True
+    local = torch.full_like(flat, uniq.numel())
+    local[ok] = inv
+    sub = table[uniq].cpu()
+    want = sub.clone()
+    rows.row_scatter_add_plain(want, local.to(torch.int32).cpu(),
+                               delta.cpu())
+    d = delta.shape[1]
+    mass = sub[:, :d].abs().double()
+    mass.index_add_(0, inv.cpu(), delta[ok].abs().double().cpu())
+    limit = 2.0 * counts.cpu().double()[:, None] * 2.0 ** -24 * mass
+    diff = (got[uniq].cpu()[:, :d] - want[:, :d]).abs()
+    return float(diff.max()), bool((diff.double() <= limit).all())
+
+
+def host_call_ms(torch, fn, reps: int = 50) -> float:
+    """Host ms of one ``fn()`` call: ``reps`` calls back to back on the
+    host clock, without waiting for the card (the launches queue), after
+    warm-up."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    elapsed = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return elapsed / reps * 1e3
+
+
+def check_scatter(torch, cases, D: int, row_bytes: int = 0, rotate=(),
+                  distinct: bool = False):
+    """K3 on ``cases``, the step's (table, ids, delta) triples, as the
+    path launches it (``distinct``: the one-writer form for ids known to
+    ascend; else the sorted form): bit for bit two launches on the raw
+    deltas against each other and against the kernel-order plain
+    version (``row_scatter_add_ordered``; for distinct ids the plain
+    version on the card), bit for bit against the plain version on
+    deltas rounded ``on_grid`` (every sum exact in any order), and
+    within ``scatter_cpu_err``'s bound of the plain version on a CPU
+    copy; duplicate ids and the Zipf head included. Timed over all the
+    triples, as the step launches them (``rotate``: as in
+    ``check_gather``), the sort included, and the kernel alone, and the
+    wrapper's host ms a call (its id preparation launches from Python). The
+    bound counts the ids and rows of the delta, and each table row they
+    reach read and written at ``row_bytes`` (default ``D * 4``; 32 for
+    rows narrower than a sector)."""
+    from multiverso_tpu_torch.kernels import rows
+    err, cpu_err, nonzero, n_bytes = 0.0, 0.0, [], 0
+    ok, longest = True, 0
     for table, ids, delta in cases:
+        k = delta.shape[0]
+        a, b, c = table.clone(), table.clone(), table.clone()
+        rows.row_scatter_add(a, ids, delta, 1.0, distinct=distinct)
+        rows.row_scatter_add(b, ids, delta, 1.0, distinct=distinct)
+        if distinct:
+            rows.row_scatter_add_plain(c, ids, delta, 1.0)
+        else:
+            plan = rows.scatter_plan(ids, k, table.shape[0])
+            rows.row_scatter_add_ordered(c, plan, delta, 1.0)
+            heads = rows.run_heads(plan.keys).nonzero().reshape(-1)
+            lengths = torch.diff(heads, append=heads.new_full((1,), k))
+            longest = max(longest, int(lengths.max()))
+            del plan
+        ok = ok and torch.equal(a, b) and torch.equal(a, c)
+        e, within = scatter_cpu_err(torch, table, ids, delta, a)
+        cpu_err, ok = max(cpu_err, e), ok and within
+        del a, b, c
         base, grid_delta = on_grid(torch, table, ids, delta)
         nonzero.append(float((grid_delta != 0).float().mean()))
         a = base.clone()
-        rows.row_scatter_add(a, ids, grid_delta, 1.0)
+        rows.row_scatter_add(a, ids, grid_delta, 1.0, distinct=distinct)
         rows.row_scatter_add_plain(base, ids, grid_delta, 1.0)
         err = max(err, float((a - base).abs().max()))
         del a, base
-        k = delta.shape[0]
         reached = touched_rows(torch, ids.reshape(-1)[:k], table.shape[0])
         n_bytes += k * 4 + k * D * 4 + 2 * reached * (row_bytes or D * 4)
     clones = {}
     sets = [[(clones.setdefault(id(table), table.clone()), ids,
               ids.reshape(-1)[:delta.shape[0]].to(torch.int64), delta)
              for table, ids, delta in s] for s in [cases, *rotate]]
+
+    def kernel(t, ids, _, d):
+        rows.row_scatter_add(t, ids, d, 1.0, distinct=distinct)
+
+    form = "distinct ids, one writer an element" if distinct else \
+        f"sorted, longest run {longest}"
     result = dict(
         name="row_scatter_add",
-        tol=f"bit-exact on grid-rounded deltas ({[round(x, 3) for x in nonzero]}"
-            f" of them nonzero)", max_abs_err=err, ok=err == 0.0,
+        tol=f"{form}: bit-exact run to run and vs the kernel-order plain "
+            f"version on raw deltas, bit-exact vs the plain version on "
+            f"grid-rounded deltas ({[round(x, 3) for x in nonzero]} of them "
+            f"nonzero; max err {err:g}); vs the plain version on a CPU "
+            f"copy |err| <= 2 L 2^-24 (|x0| + sum |delta|)",
+        max_abs_err=cpu_err, ok=ok and err == 0.0,
         source="multiverso_tpu_torch/csrc/row_scatter_add.cu",
         replaces="multiverso_tpu/updater/rules.py:94",
-        ms=time_ms(torch, in_turn(
-            sets, lambda t, ids, _, d: rows.row_scatter_add(t, ids, d, 1.0))),
+        ms=time_ms(torch, in_turn(sets, kernel)),
+        kernel_ms=time_ms(torch, in_turn(sets, kernel), only="scatter_"),
+        host_ms=host_call_ms(torch, lambda: kernel(*sets[0][0])),
         plain_ms=time_ms(torch, in_turn(
             sets, lambda t, ids, _, d: rows.row_scatter_add_plain(
                 t, ids, d, 1.0))),
@@ -522,16 +606,90 @@ def check_scatter(torch, cases, D: int, row_bytes: int = 0, rotate=()):
     return result
 
 
+def check_row_forms(torch, device) -> None:
+    """Every form of K2, K3, K15 and K16 at widths 1, 3, 50 and 128 on
+    Zipf ids (a run of 3,000 positions, ids past the table, wrapped
+    negatives, the pad sentinel, fewer delta rows than ids), both signs:
+    bit for bit the gathers against their plain versions, the scatters
+    run against run and against the kernel-order plain version (distinct
+    ids: the plain version) on raw deltas and against the plain version
+    on grid-rounded deltas. Fatal on any difference."""
+    import numpy as np
+    from multiverso_tpu_torch.kernels import rows
+    rng = np.random.default_rng(12)
+    R, n = 50_000, 20_000
+    zipf = np.minimum(rng.zipf(1.2, n) - 1, R + 99).astype(np.int32)
+    zipf[:3000] = 7
+    zipf[3000:3100] = -rng.integers(1, R + 1, 100)
+    zipf[3100:3200] = R
+    rng.shuffle(zipf)
+    ids = torch.from_numpy(zipf).to(device)
+    ascending = torch.from_numpy(np.concatenate([
+        np.sort(rng.choice(R, n // 2, replace=False)),
+        np.full(n // 2, R)]).astype(np.int32)).to(device)
+    bad = []
+    for width in (1, 3, 50, 128):
+        gen = torch.Generator(device=device)
+        gen.manual_seed(width)
+        table = torch.randn((R, width + 2), generator=gen, device=device)
+        delta = torch.randn((n - 5, width), generator=gen, device=device)
+        for name, got, want in (
+                ("K2 zipf", rows.row_gather(table, ids, width),
+                 rows.row_gather_plain(table, ids, width)),
+                ("K2 ascending", rows.row_gather(table, ascending, width),
+                 rows.row_gather_plain(table, ascending, width)),
+                ("K15 window", rows.row_gather_bounded(
+                    table, ids, 1000, R - 2000, width),
+                 rows.row_gather_bounded_plain(table, ids, 1000, R - 2000,
+                                               width))):
+            if not torch.equal(got, want):
+                bad.append(f"{name} width {width}")
+        for sign in (1.0, -1.0):
+            for name, cut, distinct in (("K3 sorted", ids, False),
+                                        ("K3 distinct", ascending, True)):
+                a, b, c = table.clone(), table.clone(), table.clone()
+                rows.row_scatter_add(a, cut, delta, sign, distinct=distinct)
+                rows.row_scatter_add(b, cut, delta, sign, distinct=distinct)
+                if distinct:
+                    rows.row_scatter_add_plain(c, cut, delta, sign)
+                else:
+                    rows.row_scatter_add_ordered(
+                        c, rows.scatter_plan(cut, n - 5, R), delta, sign)
+                base, grid = on_grid(torch, table, cut, delta)
+                g = base.clone()
+                rows.row_scatter_add(g, cut, grid, sign, distinct=distinct)
+                rows.row_scatter_add_plain(base, cut, grid, sign)
+                if not (torch.equal(a, b) and torch.equal(a, c)
+                        and torch.equal(g, base)):
+                    bad.append(f"{name} width {width} sign {sign}")
+            a, b, c = table.clone(), table.clone(), table.clone()
+            for t in (a, b):
+                rows.row_scatter_add_bounded(t, ids, delta, 1000, R - 2000,
+                                             sign)
+            rows.row_scatter_add_ordered(
+                c, rows.scatter_plan(ids, n - 5, R, (1000, R - 2000)),
+                delta, sign)
+            if not (torch.equal(a, b) and torch.equal(a, c)):
+                bad.append(f"K16 width {width} sign {sign}")
+    log(f"[row forms] K2, K3, K15, K16 at widths 1, 3, 50, 128 on {n} "
+        f"Zipf ids (a run of 3,000) and {n // 2} ascending ones, both "
+        f"signs: {'OK' if not bad else 'FAIL ' + ', '.join(bad)}")
+    if bad:
+        raise AssertionError(f"row kernels disagree: {bad}")
+
+
 def report(results, card: str, path: str):
     """Log the checks of ``path``'s kernels; fail on any disagreement."""
     for r in results:
         r["path"] = path
         lib = "n/a" if r["library_ms"] is None else \
             f"{r['library_ms']:.4f} ms"
+        alone = f" total ({r['kernel_ms']:.4f} kernel alone; host " \
+            f"{r['host_ms']:.4f} ms a call)" if "kernel_ms" in r else ""
         log(f"[kernel {r['name']} @ {path}] {card} | max_abs_err "
             f"{r['max_abs_err']:g} ({r['tol']}) "
-            f"{'OK' if r['ok'] else 'FAIL'} | kernel {r['ms']:.4f} ms | "
-            f"plain {r['plain_ms']:.4f} ms | library {lib} | bound "
+            f"{'OK' if r['ok'] else 'FAIL'} | kernel {r['ms']:.4f} ms"
+            f"{alone} | plain {r['plain_ms']:.4f} ms | library {lib} | bound "
             f"{r['bound'][0]:.4f} ms ({r['bound'][1]})")
     bad = [r["name"] for r in results if not r["ok"]]
     if bad:
@@ -634,6 +792,7 @@ def check_kernels(torch, trainer, card: str):
                     + (C * D + urows.numel()) * 4 + 8, flops)))
     del table_in, table_out
     check_wide_blocks(torch, dev)
+    check_row_forms(torch, dev)
     return report(results, card, "ps")
 
 
@@ -1732,7 +1891,8 @@ def lr_ps_table_checks(torch, np, model, batch, device):
     delta = torch.randn(rows.numel(), 1, generator=gen, device=device) \
         * 1e-2
     return [check_gather(torch, ((table, every), (table, none)), 1),
-            check_scatter(torch, ((table, ids, delta),), 1, row_bytes=32)]
+            check_scatter(torch, ((table, ids, delta),), 1, row_bytes=32,
+                          distinct=True)]
 
 
 def lr_model(mv, family: str, config, device):
@@ -2262,7 +2422,7 @@ def tbl_kernel_checks(torch, np, device, card: str):
                           rotate=[[(table, i)] for i, _ in sets[1:]])
     out["tbl_dirty_default"] = [check_scatter(
         torch, [(table, ids, delta)], C,
-        rotate=[[(table, i, d)] for i, d in sets[1:]]), gather]
+        rotate=[[(table, i, d)] for i, d in sets[1:]], distinct=True), gather]
     for suffix, _, _ in TBL_RULES:
         out[f"tbl_dirty_{suffix}"].append(dict(gather))
     del table, base, grid_delta, sets
@@ -3203,14 +3363,12 @@ def ma_ranks_path(torch, np, device, dictionary, tokenized, card: str,
     ``overlap=True``, then ``overlap=False`` again: raw words/s and
     ``MA_COMM_STALL`` of each run, the host's peak memory; every run's
     tables finite. The two modes apply the same average at the same
-    point, but the card's local steps are not reproducible bit for bit
-    (K3 adds duplicate ids with float atomics, in an order that varies
-    from run to run), so sync against overlap must differ no more than
-    10x what the two sync runs differ from each other (exactly equal
-    when the sync runs are; a fault of the averaging, such as a skipped
-    or misplaced average, moves values by the updates themselves,
-    orders of magnitude more). Every average copies both tables to the
-    host and back (the reference's design): the path is host-bound."""
+    point and every kernel of the step is deterministic (K3 sums each
+    row's duplicates in a fixed order), so each rank's final tables must
+    be bit-identical between sync and overlap and between the two sync
+    runs, as the reference's are. Every average copies both tables to
+    the host and back (the reference's design): the path is
+    host-bound."""
     from multiverso_tpu_torch import kernels
     from multiverso_tpu_torch.models.wordembedding import (
         MACorpusTrainer, Word2Vec, Word2VecConfig)
@@ -3285,11 +3443,11 @@ def ma_ranks_path(torch, np, device, dictionary, tokenized, card: str,
             modes, spread = runs[1][rank][i], runs[2][rank][i]
             log(f"[{path}] rank {rank} {name}: sync vs overlap max abs "
                 f"diff {modes:g}; sync vs sync {spread:g}")
-            if modes > 10 * spread:
+            if modes != 0.0 or spread != 0.0:
                 raise AssertionError(
-                    f"{path}: rank {rank} {name} differs more between sync "
-                    f"and overlap ({modes:g}) than between two sync runs "
-                    f"({spread:g})")
+                    f"{path}: rank {rank} {name} is not bit-identical "
+                    f"between the runs (sync vs overlap {modes:g}, sync vs "
+                    f"sync {spread:g}; ROADMAP C11)")
     return [], {}
 
 

@@ -1,7 +1,7 @@
 // Device pieces shared by the row kernels K2, K3, K14, K15 and K16
 // (row_gather.cu, row_scatter_add.cu, row_rules.cu): JAX's rule for a
 // row id, the bounded rule of a shard's window, and a warp's atomic add
-// of one delta row into one table row.
+// of one delta row into one table row (K14's stateless arm).
 
 #pragma once
 

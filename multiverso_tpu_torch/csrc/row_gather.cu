@@ -16,10 +16,16 @@
 //
 // Bound on the card: bytes. Each output row is one read and one write of
 // n_col floats plus a 4-byte id (a foreign id only the write), no
-// arithmetic. One warp per output row keeps the 32 lanes on one
-// contiguous row: at n_col = 128 each lane moves exactly one 16-byte
-// float4, so every load and store is a full 512-byte coalesced
-// transaction.
+// arithmetic. Two forms. Rows of a warp's width or more: a warp a row,
+// so the 32 lanes stay on one contiguous row (at n_col = 128 each lane
+// moves exactly one 16-byte float4, so every load and store is a full
+// 512-byte coalesced transaction). Rows narrower than a warp
+// (lr_sparse_ps's 1-float rows): a thread an output element, flat
+// element e taking row e / n_col and column e % n_col, in a grid-stride
+// loop over as many threads as the card holds; neighbouring lanes then
+// load neighbouring ids and store neighbouring outputs, and read
+// neighbouring table elements when the ids ascend (the whole-table dirty
+// Get), where a warp a row left 31 of 32 lanes idle.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -70,11 +76,51 @@ __global__ void row_gather_scalar(const float* __restrict__ data,
 }
 
 template <bool BOUNDED>
+__global__ void __launch_bounds__(kThreads)
+    row_gather_elems(const float* __restrict__ data, int64_t rows,
+                     int64_t stride, const int32_t* __restrict__ ids,
+                     int64_t k, float* __restrict__ out, int n_col,
+                     int64_t ofs, int64_t n) {
+  const int64_t total = k * n_col;
+  const int64_t step = (int64_t)gridDim.x * kThreads;
+  for (int64_t e = blockIdx.x * (int64_t)kThreads + threadIdx.x; e < total;
+       e += step) {
+    const int64_t i = n_col == 1 ? e : e / n_col;
+    const int c = (int)(e - i * n_col);
+    const int64_t id = row_of<BOUNDED>(__ldg(ids + i), rows, ofs, n);
+    out[e] = id < 0 ? 0.f : __ldg(data + id * stride + c);
+  }
+}
+
+// Blocks of a grid-stride kernel: 8 a streaming multiprocessor (2,048
+// threads of 256-thread blocks fill an SM), read once from the device.
+int resident_blocks() {
+  static int blocks = 0;
+  if (blocks == 0) {
+    int dev = 0, sms = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess || sms <= 0) {
+      sms = 132;
+    }
+    blocks = sms * 8;
+  }
+  return blocks;
+}
+
+template <bool BOUNDED>
 cudaError_t launch_gather(const float* data, int64_t rows, int64_t stride,
                           const int32_t* ids, int64_t k, float* out,
                           int n_col, int64_t ofs, int64_t n,
                           cudaStream_t stream) {
   if (k <= 0 || n_col <= 0) return cudaSuccess;
+  if (n_col < 32) {
+    int64_t blocks = (k * n_col + kThreads - 1) / kThreads;
+    if (blocks > resident_blocks()) blocks = resident_blocks();
+    row_gather_elems<BOUNDED><<<(unsigned)blocks, kThreads, 0, stream>>>(
+        data, rows, stride, ids, k, out, n_col, ofs, n);
+    return cudaGetLastError();
+  }
   const int64_t blocks = (k * 32 + kThreads - 1) / kThreads;
   const bool vec = (n_col % 4 == 0) && (stride % 4 == 0) &&
                    (reinterpret_cast<uintptr_t>(data) % 16 == 0) &&

@@ -39,12 +39,14 @@
 // rule.
 //
 // K14 is ONE cooperative launch: the update phase (the stateless rules
-// scatter-add with float atomics through K3's atomic_add_row of
-// row_common.cuh, the stateful ones run K13's segments), a grid-wide
-// barrier, then the gather phase, a warp per
-// requested row, reading through L2 (`__ldcg`) the rows that other
-// blocks have just written. The grid is as large as can be resident at
-// once (occupancy x SMs) and both phases stride over it.
+// scatter-add with float atomics through atomic_add_row of
+// row_common.cuh, so their duplicates sum in an order that varies from
+// run to run: ROADMAP C11's remainder, off the word2vec and
+// model-average paths; the stateful ones run K13's segments), a
+// grid-wide barrier, then the gather phase, a warp per requested row,
+// reading through L2 (`__ldcg`) the rows that other blocks have just
+// written. The grid is as large as can be resident at once (occupancy x
+// SMs) and both phases stride over it.
 //
 // The arithmetic uses the _rn intrinsics in the reference's expression
 // order, so no FMA contraction moves a rounding. AdaGrad's
@@ -164,7 +166,7 @@ __device__ void apply_segment(const Rows& a, int64_t j, int lane) {
 }
 
 // One warp: delta row i scatter-added (default) or subtracted (sgd), as
-// K3 adds it.
+// K3 adds it, but with float atomics.
 template <int RULE>
 __device__ void add_row(const Rows& a, int64_t i, int lane) {
   if (i >= a.k_delta) return;

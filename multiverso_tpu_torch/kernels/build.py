@@ -49,11 +49,12 @@ _F = ctypes.c_float
 #: ctypes would otherwise pass a Python int as a 32-bit int).
 SIGNATURES = {
     "mv_row_gather": [_P, _I64, _I64, _P, _I64, _P, _I, _P],
-    "mv_row_scatter_add": [_P, _I64, _I64, _P, _I64, _P, _I, _F, _P],
+    "mv_row_scatter_add_distinct": [_P, _I64, _I64, _P, _I64, _P, _I, _F,
+                                    _P],
+    "mv_row_scatter_add_sorted": [_P, _I64, _I64, _P, _P, _I64, _P, _I, _F,
+                                  _P, _P, _I64, _P],
     "mv_row_gather_bounded": [_P, _I64, _I64, _P, _I64, _P, _I, _I64, _I64,
                               _P],
-    "mv_row_scatter_add_bounded": [_P, _I64, _I64, _P, _I64, _P, _I, _F,
-                                   _I64, _I64, _P],
     "mv_mesh_allreduce": [_P, _I, _I64, _I, _I, _P, _P],
     "mv_segment_merge": [_P, _P, _I, _P, _P, _I64, _I, _P, _P],
     "mv_segment_split": [_P, _I64, _I, _P, _P, _I, _P, ctypes.c_uint32, _P,

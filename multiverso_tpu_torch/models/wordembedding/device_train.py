@@ -626,6 +626,9 @@ def _run_subs(emb_in, emb_out, subs):
         d_in, d_out, sub_loss, sub_examples = kernel(
             row_gather(emb_in, in_ids, D),
             row_gather(emb_out, out_ids, D), *args)
+        # Both id lists repeat (centers; the band and the negatives, the
+        # Zipf head thousands of times): K3's sorted form, which sums a
+        # row's duplicates in the same order on every run.
         row_scatter_add(emb_in, in_ids, d_in)
         row_scatter_add(emb_out, out_ids, d_out)
         if loss is None:

@@ -413,6 +413,8 @@ class Word2Vec:
         d_in, in_rows, d_out, out_rows, loss = self._step_grads(
             self._emb_in, self._emb_out, *self._batch_args(batch),
             float(-np.float32(lr)))
+        # Global ids of every pair: they repeat (and HS pads its path
+        # nodes to row 0), so K3 sorts them.
         row_scatter_add(self._emb_in, in_rows, d_in)
         row_scatter_add(self._emb_out, out_rows, d_out)
         return loss
@@ -603,6 +605,8 @@ class PSWord2Vec(Word2Vec):
             float(-lr_scaled))
         delta_in = torch.zeros_like(old_in)
         delta_out = torch.zeros_like(old_out)
+        # Slots of the pulled buffers, one a pair position: they repeat
+        # (HS pads its path nodes to slot 0), so K3 sorts them.
         row_scatter_add(delta_in, in_rows, d_in)
         row_scatter_add(delta_out, out_rows, d_out)
         return _Launched(prep=prep, delta_in=delta_in,

@@ -102,7 +102,9 @@ class UpdateEngine:
             CHECK(self._state is None,
                   "device-key row adds need a stateless updater "
                   "(default/sgd): duplicate ids must sum")
+        distinct = False
         if not is_device_array(row_ids):
+            distinct = ascending(row_ids, self.shape[0])
             row_ids, delta = pad_rows(row_ids, delta, self.shape[0])
         ids = _on(row_ids, data.device).to(torch.int32)
         delta = _on(delta, data.device)
@@ -110,7 +112,8 @@ class UpdateEngine:
             else delta.reshape(ids.numel(), -1)
         if bounds is None:
             self.rule.rows(data, self._state, ids.reshape(-1),
-                           delta.contiguous(), hyp, worker_id)
+                           delta.contiguous(), hyp, worker_id,
+                           distinct=distinct)
         else:
             self.rule.rows_bounded(data, ids.reshape(-1),
                                    delta.contiguous(), bounds)
@@ -147,6 +150,15 @@ def _unpack(option: Optional[AddOption]) -> Tuple[np.ndarray, int]:
     if option is None:
         return _DEFAULT_HYP, 0
     return option.hyper_array(), max(option.worker_id, 0)
+
+
+def ascending(row_ids, num_rows: int) -> bool:
+    """Whether host row ids are all in ``[0, num_rows)`` and strictly
+    ascending (then distinct: the row scatter needs no sort; the bucket
+    padding that follows adds only sentinels, which drop)."""
+    ids = np.asarray(row_ids).reshape(-1)
+    return ids.size == 0 or (int(ids[0]) >= 0 and int(ids[-1]) < num_rows
+                             and bool(np.all(ids[1:] > ids[:-1])))
 
 
 def pad_ids(row_ids, num_rows: int) -> np.ndarray:

@@ -68,11 +68,13 @@ class UpdaterRule:
     def dense(self, data, state, delta, hyp, worker_id):
         raise NotImplementedError
 
-    def rows(self, data, state, row_ids, delta, hyp, worker_id):
+    def rows(self, data, state, row_ids, delta, hyp, worker_id,
+             distinct: bool = False):
         """Row-sparse update. ``row_ids`` may be padded with
         out-of-range indices (>= data.shape[0]), which are dropped;
         ``delta`` [k, d] may have fewer rows than ids and fewer columns
-        than the storage (zero extension)."""
+        than the storage (zero extension). ``distinct``: the in-range
+        ids strictly ascend (K13 sorts them all the same)."""
         row_rule_apply(self.name, data, state, row_ids, delta, hyp,
                        worker_id)
         return data, state
@@ -94,8 +96,13 @@ class DefaultRule(UpdaterRule):
 
     sign = 1.0
 
-    def rows(self, data, state, row_ids, delta, hyp, worker_id):
-        row_scatter_add(data, row_ids, delta, self.sign)
+    def rows(self, data, state, row_ids, delta, hyp, worker_id,
+             distinct: bool = False):
+        # Ids that can repeat (device keys of PS pushes, fused requests)
+        # take K3's sorted form; ids the engine found strictly ascending
+        # (lr_sparse_ps's unique rows, the tbl_* rounds' every 10th row)
+        # its one-writer form.
+        row_scatter_add(data, row_ids, delta, self.sign, distinct=distinct)
         return data, state
 
     def rows_bounded(self, data, row_ids, delta, bounds) -> None:
