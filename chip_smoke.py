@@ -4,9 +4,11 @@ CUDA card.
 
 Phases, each fatal on failure:
 
-1. build the nineteen hand-written kernels from ``multiverso_tpu_torch/csrc``
-   (one ``nvcc`` per source, all started together) and print the build
-   time and ``ptxas`` resource usage;
+1. build the twenty hand-written kernels from ``multiverso_tpu_torch/csrc``
+   (one ``nvcc`` per source, all started together, ``-ftz=true``) and
+   print the build time, ``ptxas`` resource usage and how many of the
+   library's float adds, multiplies and fused multiply-adds flush
+   subnormals (``.FTZ`` in its SASS);
 2. set up the main path at the benchmark's full width: the synthetic
    corpus of ``bench.py`` (``models/wordembedding/synthetic.py``, ~6M
    tokens, ~1M-word dictionary), ``mv.init([])`` on ``cuda:0``,
@@ -28,7 +30,10 @@ Phases, each fatal on failure:
    and share of the wrapper's time); also K4 and K5 with a negative
    block wider than a thread block, at a small width, and every form of
    K2, K3, K15 and K16 (narrow and wide rows, distinct and repeating
-   ids) at widths 1, 3, 50 and 128;
+   ids) at widths 1, 3, 50 and 128; and K3 in both forms and K14's
+   default and sgd arms on tables and deltas full of float32 subnormals,
+   bit for bit their plain versions, which flush as the reference does
+   (ROADMAP C12);
 4. drive the main path — ``train_epoch`` for 8 blocks through the worker
    and server actors — with every launch count set to 0 just before and
    read just after; every kernel must have launched;
@@ -78,7 +83,12 @@ Phases, each fatal on failure:
    weight vector), in batches of 4096: K11 and K12 against their plain
    versions at the first batch's shapes (K11 within a tolerance, K12 bit
    for bit on values and diffs rounded to a grid where every sum is
-   exact; also softmax at C=10, L1 and keys repeated within a sample),
+   exact, the same bits on two launches, and no host sync in the call
+   under ``torch.cuda.set_sync_debug_mode("error")``; also softmax at
+   C=10, L1 and keys repeated within a sample), K20 ``key_sort`` (K12's
+   id sort) bit for bit against ``torch.sort(stable=True)`` on the
+   batch's keys, all-equal keys, all-dropped keys and a table of
+   2^31 - 1 rows,
    then four sparse paths — ``lr_sparse_local`` (``LocalModel``,
    sigmoid, L2, sgd), ``lr_ftrl_local`` (``FTRLModel``),
    ``lr_sparse_ps`` (``PSModel`` over a sparse matrix table, with K2 and
@@ -174,9 +184,12 @@ Usage: ``python3 chip_smoke.py`` (one card). ``--profile DIR`` adds a
 device's busy share and the host monitors) and keeps the Chrome trace
 of every counted path. ``--multiserver-only`` builds the kernels and
 runs phase 11 alone (its ``kernels`` line and the card's line, no
-result line), ``--ma-only`` phase 12 alike; ``--step-kernels-only``
-holds and times the word2vec step kernels K4-K7 alone at every path's
-shape (``step_result``, no counted runs, no result line).
+result line), ``--ma-only`` phase 12 alike; ``--step-kernels-only [NAMES]``
+holds and times the word2vec step kernels K4-K8 alone at every path's
+shape (``step_result``; K8 also in its in-place form and the PS
+per-pair block step) and K12 with K20 at ``lr_sparse_local``'s, each
+launch by launch (no counted runs, no result line; NAMES keeps the
+kernels named, e.g. ``pair_offset_grad,sparse_lr_apply``).
 ``--cpu-rehearsal`` runs
 phases 2 and 4-12 at a tiny size
 on the CPU with the plain versions (no kernels, no timing, no result
@@ -278,6 +291,29 @@ def reuse_huffman_trees() -> None:
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def log_ftz(library: str) -> None:
+    """The float32 adds, multiplies, fused multiply-adds and special
+    functions of the built library's SASS, and how many of them flush
+    subnormals (``.FTZ``, from ``-ftz=true``; ROADMAP C12)."""
+    import re
+    from multiverso_tpu_torch.kernels import build
+    tool = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
+    try:
+        out = subprocess.run([tool, "-sass", library], capture_output=True,
+                             text=True, timeout=300).stdout
+    except (OSError, subprocess.TimeoutExpired) as exc:
+        log(f"[build] cuobjdump failed: {exc}")
+        return
+    counts = {}
+    for op, suffix in re.findall(r"\b(FADD|FMUL|FFMA|MUFU)(\.[A-Z0-9.]*)?",
+                                 out):
+        total, ftz = counts.get(op, (0, 0))
+        counts[op] = (total + 1, ftz + (".FTZ" in suffix))
+    log("[build] SASS float ops (all / .FTZ): " + ", ".join(
+        f"{op} {t} / {f}" for op, (t, f) in sorted(counts.items())))
+
 
 
 def card_line() -> str:
@@ -730,6 +766,82 @@ def check_row_forms(torch, device) -> None:
         raise AssertionError(f"row kernels disagree: {bad}")
 
 
+def subnormal_values(np, rng, shape):
+    """Integers in [-40, 40] times 2^-130 (below 16 in magnitude
+    subnormal), a fifth normal and ~1e-37, a tenth signed zeros."""
+    x = (rng.integers(-40, 41, shape) * 2.0 ** -130).astype(np.float32)
+    pick = rng.random(shape)
+    x[pick < 0.2] = (rng.standard_normal(int((pick < 0.2).sum()))
+                     * 1e-37).astype(np.float32)
+    x[(pick >= 0.2) & (pick < 0.25)] = np.float32(-0.0)
+    x[(pick >= 0.25) & (pick < 0.3)] = np.float32(0.0)
+    return x
+
+
+def check_subnormals(torch, device) -> None:
+    """ROADMAP C12: K3 in both forms and K14's default and sgd arms (the
+    sorted form's levels inside its launch, and its one-writer form) on
+    tables and deltas full of float32 subnormals, at widths 1, 50 and
+    128: bit for bit (int32 views) their plain versions, which flush
+    every add's inputs and result as the reference does — the sorted
+    forms ``row_scatter_add_ordered`` (then ``row_gather_plain`` for
+    K14), the one-writer forms ``row_scatter_add_plain``. Zipf ids with
+    runs longer than a task (32). Fatal on any difference."""
+    import numpy as np
+    from multiverso_tpu_torch.kernels import rows, rules
+    rng = np.random.default_rng(23)
+    R, n = 4096, 6000
+    ids = np.minimum(rng.zipf(1.3, n) - 1, R + 9).astype(np.int32)
+    ids[:200] = 3
+    rng.shuffle(ids)
+    ids = torch.from_numpy(ids).to(device)
+    ascending = torch.from_numpy(np.sort(rng.choice(
+        R, n // 2, replace=False)).astype(np.int32)).to(device)
+    gets = torch.from_numpy(rng.integers(0, R + 5, 512).astype(
+        np.int32)).to(device)
+    hyp = np.array([0.9, 0.01, 0.1, 0.1], np.float32)
+
+    def bits(x):
+        return x.contiguous().view(torch.int32)
+
+    bad, flushed = [], 0
+    for width in (1, 50, 128):
+        table = torch.from_numpy(subnormal_values(np, rng, (R, width + 2))
+                                 ).to(device)
+        delta = torch.from_numpy(subnormal_values(np, rng, (n, width))
+                                 ).to(device)
+        for sign, rule in ((1.0, "default"), (-1.0, "sgd")):
+            for name, cut, distinct in (("sorted", ids, False),
+                                        ("one writer", ascending, True)):
+                k = min(cut.numel(), n)
+                d = delta[:k]
+                a, c = table.clone(), table.clone()
+                rows.row_scatter_add(a, cut, d, sign, distinct=distinct)
+                if distinct:
+                    rows.row_scatter_add_plain(c, cut, d, sign)
+                else:
+                    rows.row_scatter_add_ordered(
+                        c, rows.scatter_plan(cut, k, R), d, sign)
+                if not torch.equal(bits(a), bits(c)):
+                    bad.append(f"K3 {name} width {width} sign {sign}")
+                small = (table != 0) & (table.abs() < 2.0 ** -126)
+                flushed += int((small & (a == 0)).sum())
+                f = table.clone()
+                got = rules.rows_apply_gather(rule, f, None, cut, d, hyp, 0,
+                                              gets, width, distinct=distinct)
+                want = rows.row_gather_plain(c, gets, width)
+                if not (torch.equal(bits(f), bits(c))
+                        and torch.equal(bits(got), bits(want))):
+                    bad.append(f"K14 {rule} {name} width {width}")
+    log(f"[subnormals] K3 (sorted, one writer) and K14 default/sgd at widths "
+        f"1, 50, 128 on subnormal tables and deltas: "
+        f"{'OK' if not bad else 'FAIL ' + ', '.join(bad)} ({flushed} "
+        f"subnormal table elements flushed to zero)")
+    if bad:
+        raise AssertionError(f"subnormals: kernels disagree with their "
+                             f"plain versions: {bad}")
+
+
 def report(results, card: str, path: str):
     """Log the checks of ``path``'s kernels; fail on any disagreement."""
     for r in results:
@@ -850,6 +962,7 @@ def check_kernels(torch, trainer, card: str):
     check_span_layouts(D)
     check_wide_blocks(torch, dev)
     check_row_forms(torch, dev)
+    check_subnormals(torch, dev)
     return report(results, card, "ps")
 
 
@@ -1131,10 +1244,17 @@ def step_result(torch, kernel, plain, args, n_bytes: float, flops: float,
     del again, ref
     split = time_split(torch, lambda: kernel(*args))
     log_split(name, path, split)
+    extra = ""
+    if name == "pair_offset_grad":
+        inplace = check_pair_inplace(torch, args, got, path)
+        bits = bits and inplace
+        extra = f"; in-place form = delta form + three adds, bit for " \
+            f"bit: {'yes' if inplace else 'NO'}"
     result = dict(
         name=name, tol=f"grads |err| <= 1e-5 + 1e-4 |plain|; loss rel err "
         f"{loss_rel:.2g} <= 1e-5; counts equal; same bits on two launches "
-        f"{'yes' if bits else 'NO'}", max_abs_err=err, ok=ok and bits,
+        f"{'yes' if bits else 'NO'}{extra}", max_abs_err=err,
+        ok=ok and bits,
         source=source, replaces=replaces,
         ms=sum(ms for _, ms in split),
         plain_ms=time_ms(torch, lambda: plain(*args)), library_ms=None,
@@ -1142,6 +1262,56 @@ def step_result(torch, kernel, plain, args, n_bytes: float, flops: float,
     log(f"[kernel {name} @ {path}] bound from {n_bytes / 1e6:.1f} MB, "
         f"{flops / 1e9:.2f} GFLOP")
     return result
+
+
+def check_pair_inplace(torch, args, got, path: str) -> bool:
+    """K8's in-place form (the PS path's) on copies of ``args``' rows
+    against the delta form ``got`` added with torch's three ``+=``: the
+    same bits. Times the in-place form launch by launch. True where the
+    port has no in-place form (an earlier tree)."""
+    from multiverso_tpu_torch.kernels import pair
+    if not hasattr(pair, "pair_offset_grad_"):
+        return True
+    v, u, m, K, scale = args
+    C = v.shape[0]
+    vv, uu = v.clone(), u.clone()
+    loss, examples = pair.pair_offset_grad_(vv, uu[:C], uu[C:], m, K, scale)
+    want_v, want_u = v.clone(), u.clone()
+    want_v += got[0]
+    want_u[:C] += got[1][:C]
+    want_u[C:] += got[1][C:]
+    ok = same_bits(torch, (vv, uu, loss, examples),
+                   (want_v, want_u, got[2], got[3]))
+    log_split("pair_offset_grad in place", path, time_split(
+        torch, lambda: pair.pair_offset_grad_(vv, uu[:C], uu[C:], m, K,
+                                              scale)))
+    return ok
+
+
+def ps_pair_block_step(torch, trainer, table_in, table_out, path: str):
+    """The per-pair mode's PS block step (``device_train._block_ids``'s
+    ``step``: 2W K8 sub-steps on local copies of block 0's pulled rows,
+    then the push deltas), timed launch by launch: the device ms of a
+    block and of a sub-step (the block over 2W)."""
+    from multiverso_tpu_torch.kernels import rows
+    from multiverso_tpu_torch.models.wordembedding import device_train
+    C, W = trainer._C, trainer.config.window
+    D = trainer.config.embedding_size
+    u = trainer._draws.epoch_uniforms(1234, trainer._corpus.n_tokens)
+    kept, ksent, n_kept = trainer._corpus.prep_epoch(u)
+    kept_pad, ksent_pad = device_train._pad_stream(C, W, kept, ksent)
+    draws = device_train.TorchDraws(trainer.device).group_draws(
+        1234, 0, 1, C, W, trainer._neg_shape(), trainer._vocab)
+    in_ids, out_ids, step = device_train._block_ids(
+        trainer.config, trainer._tables, C, trainer._B, trainer._per_pair,
+        draws[0], kept_pad, ksent_pad, int(n_kept), 0, 0.025, 1.0)
+    v = rows.row_gather(table_in, in_ids, D)
+    u_rows = rows.row_gather(table_out, out_ids, D)
+    split = time_split(torch, lambda: step(v, u_rows))
+    log_split("ps per-pair block step", path, split)
+    total = sum(ms for _, ms in split)
+    log(f"[{path}] the PS per-pair block step: {total:.4f} device ms a "
+        f"block, {total / (2 * W):.4f} a sub-step (2W = {2 * W})")
 
 
 def ps_group_case(torch, trainer, u, table_in, table_out, first: int = 0):
@@ -1888,41 +2058,64 @@ def lr_case(torch, np, tag: str, config, batch, gen, device, ps: bool,
         return (torch.zeros(R, C, device=device),
                 torch.zeros(R, C, device=device))
 
-    a, b = _clone_table(table), _clone_table(table)
-    pa, pb = push_buffers(), push_buffers()
+    a, b, a2 = (_clone_table(table) for _ in range(3))
+    pa, pb, pa2 = push_buffers(), push_buffers(), push_buffers()
     want_rows = ps and ftrl is None
-    rows_a, delta_a = lrk.sparse_lr_apply(
-        a, keys, vg, dg, count, reg=reg, coef=config.regular_coef,
-        scale=scale, ftrl=ftrl, delta_rows=want_rows, push=pa)
+
+    def apply(t, p):
+        return lrk.sparse_lr_apply(
+            t, keys, vg, dg, count, reg=reg, coef=config.regular_coef,
+            scale=scale, ftrl=ftrl, delta_rows=want_rows, push=p)
+
+    synced = no_sync(torch, lambda: apply(a, pa))
+    if not synced[1]:
+        # The check failed; run the call again to hold its numbers.
+        a, pa = _clone_table(table), push_buffers()
+        synced = (apply(a, pa), False)
+    rows_a, delta_a = synced[0]
+    rows_2, delta_2 = apply(a2, pa2)
     touched = lrk.touched_rows(keys, R)
     delta_b = lrk.sparse_lr_apply_plain(
         b, touched, vg, dg, count, reg, config.regular_coef, scale, ftrl,
         want_rows, pb)
+    U = int(touched.rows.numel())
     pairs = list(zip((a,) if ftrl is None else a, (b,) if ftrl is None
                      else b))
+    twice = list(zip((a,) if ftrl is None else a, (a2,) if ftrl is None
+                     else a2))
+    same_rows = True
     if want_rows:
-        pairs.append((delta_a, delta_b))
+        pairs.append((delta_a[:U], delta_b))
+        twice += [(rows_a, rows_2), (delta_a[:U], delta_2[:U])]
+        same_rows = bool(torch.equal(rows_a[:U], touched.rows)) and bool(
+            (rows_a[U:] == R).all())
     if pa is not None:
         pairs += list(zip(pa, pb))
+        twice += list(zip(pa, pa2))
     apply_err = max(float((x - y).abs().max()) for x, y in pairs)
-    same_rows = bool(torch.equal(rows_a, touched.rows))
-    U = int(touched.rows.numel())
+    same_bits = all(torch.equal(x.contiguous().view(torch.int32),
+                                y.contiguous().view(torch.int32))
+                    for x, y in twice)
     app_bytes = B * K * 4 * 2 + B * C * 4 + 4 + U * sectors * 2 * tables \
         + (U * C * 4 if want_rows else 0) \
         + (U * sectors * 2 if pa is not None else 0)
     app = dict(
-        name="sparse_lr_apply", ok=apply_err == 0.0 and same_rows,
+        name="sparse_lr_apply",
+        ok=apply_err == 0.0 and same_rows and same_bits and synced[1],
         max_abs_err=apply_err,
         tol=f"bit-exact on grid-rounded values and diffs ({U} touched "
             f"rows, the padding row's {int(touched.counts[-1])} "
-            f"positions among them)",
+            f"positions among them); same bits on two launches "
+            f"{'yes' if same_bits else 'NO'}; no host sync in the call "
+            f"{'yes' if synced[1] else 'NO'}",
         source=_LR_SRC, replaces=_LR_REF + "objective.py:89",
         library_ms=None, bound=bound(app_bytes, 3.0 * B * K * C))
     log(f"[{tag}] K11/K12 case: B={B} K={K} C={C} R={R} "
         f"{'ftrl' if ftrl else 'sgd'} act={act} reg={reg} dup={dup} | "
         f"{gathered} gathered rows, {U} touched | K11 "
         f"{'OK' if fwd['ok'] else 'FAIL'} ({fwd['tol']}) | K12 "
-        f"{'OK' if app['ok'] else 'FAIL'} (max err {apply_err:g})")
+        f"{'OK' if app['ok'] else 'FAIL'} (max err {apply_err:g}; "
+        f"{app['tol']})")
     if time_it:
         ta, pa2 = _clone_table(table), push_buffers()
         fwd["ms"] = time_ms(torch, lambda: lrk.sparse_lr_forward(
@@ -1940,14 +2133,76 @@ def lr_case(torch, np, tag: str, config, batch, gen, device, ps: bool,
                 ta, lrk.touched_rows(keys, R), vg, dg, count, reg,
                 config.regular_coef, scale, ftrl, want_rows, pa2)
 
-        app["ms"] = time_ms(torch, run_kernel)
-        app["kernel_only_ms"] = time_ms(torch, run_kernel,
-                                        only="sparse_lr_apply_kernel")
+        split = time_split(torch, run_kernel)
+        log_split("sparse_lr_apply", tag, split)
+        app["ms"] = sum(ms for _, ms in split)
         app["plain_ms"] = time_ms(torch, run_plain)
-        log(f"[{tag}] K12 {app['ms']:.4f} ms a call, of which the kernel "
-            f"{app['kernel_only_ms']:.4f} ms (the rest: the ids' sort, "
-            f"unique and task split in torch)")
+        entries = [fwd, app]
+        if hasattr(lrk, "key_sort"):
+            entries.append(check_key_sort(torch, keys, R))
+            log(f"[{tag}] K12 {app['ms']:.4f} ms a call with its id sort "
+                f"(K20 key_sort, {entries[2]['ms']:.4f} ms alone)")
+        return entries
     return [fwd, app]
+
+
+def no_sync(torch, fn):
+    """(``fn()``, True) with ``torch.cuda.set_sync_debug_mode("error")``
+    around the call; (None, False) if the call synchronized with the
+    card (torch raises on that)."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn(), True
+    except RuntimeError as exc:
+        log(f"[no sync] the call synchronized: {exc}")
+        return None, False
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def check_key_sort(torch, keys, R: int):
+    """K20 against its plain version, ``torch.sort(stable=True)`` of the
+    wrapped keys, bit for bit (keys and positions) and twice alike: on
+    phase 9's keys, all equal, all dropped (every id past either end),
+    and random ids into a table of 2^31 - 1 rows (31 key bits). Timed
+    at phase 9's keys; the library call is ``torch.sort(stable=True)``
+    of the keys already wrapped."""
+    from multiverso_tpu_torch.kernels import keysort
+    gen = torch.Generator(device=keys.device)
+    gen.manual_seed(31)
+    big = 2 ** 31 - 1
+    dropped = torch.full_like(keys, R + 5)
+    dropped[::2] = -R - 3
+    cases = (("phase 9's keys", keys, R),
+             ("all equal", torch.full_like(keys, 7), R),
+             ("all dropped", dropped, R),
+             ("2^31 - 1 rows", torch.randint(
+                 -2 ** 31, big, keys.shape, generator=gen,
+                 device=keys.device, dtype=torch.int32), big))
+    bad = []
+    for name, ids, rows in cases:
+        got = keysort.key_sort(ids, rows)
+        again = keysort.key_sort(ids, rows)
+        want = keysort.key_sort_plain(ids, rows)
+        if not all(torch.equal(x, y) and torch.equal(x, z)
+                   for x, y, z in zip(got, again, want)):
+            bad.append(name)
+    n = keys.numel()
+    wrapped = keysort.sort_keys(keys, R).to(torch.int32)
+    result = dict(
+        name="key_sort", ok=not bad, max_abs_err=0.0 if not bad else 1.0,
+        tol=f"keys and positions bit for bit vs torch.sort(stable=True) "
+            f"and twice alike on {', '.join(c[0] for c in cases)}"
+            f"{'' if not bad else '; FAIL ' + ', '.join(bad)} "
+            f"({keysort.key_bits(R)} key bits at R = {R})",
+        source=_CSRC + "key_sort.cu",
+        replaces=_LR_REF + "objective.py:106",
+        ms=time_ms(torch, lambda: keysort.key_sort(keys, R)),
+        plain_ms=time_ms(torch, lambda: keysort.key_sort_plain(keys, R)),
+        library_ms=time_ms(torch, lambda: torch.sort(wrapped, stable=True)),
+        bound=bound(n * 4 + n * 4 * 2))
+    return result
 
 
 def lr_ps_table_checks(torch, np, model, batch, device):
@@ -2210,7 +2465,7 @@ def run_logreg_phase(torch, np, mv, device, card: str, workdir: str,
         config = lr_config(cfg, batch=batch)
         model = lr_model(mv, family, config, device)
         try:
-            need = ["sparse_lr_forward", "sparse_lr_apply"]
+            need = ["sparse_lr_forward", "sparse_lr_apply", "key_sort"]
             if cuda:
                 gen = torch.Generator(device=device)
                 gen.manual_seed(17)
@@ -3226,8 +3481,9 @@ def time_events_ms(torch, fn, reps: int = REPS) -> float:
 def ma_k19_check(torch, x, replaces: str, mean: bool, copies: int):
     """K19 on ``x`` [n, M] in one form against its plain version on the
     same input: bit-exact (compared as int32 bit patterns), timed beside
-    the one PyTorch call of the same function (``x.mean(0)`` or
-    ``torch.sum(x, 0)``: another summation order, timed only). Inputs
+    PyTorch's sequence for the same function and output (``x.mean(0)``
+    or ``torch.sum(x, 0)``, then, for ``copies`` > 1, a copy into every
+    slot; another summation order, timed only). Inputs
     past 64 MB are timed with CUDA events over ``REPS`` calls: there
     ``time_ms``'s profiler sums have read below the byte bound (PERF.md
     §6); smaller ones with ``time_ms``, whose events would time the
@@ -3239,7 +3495,10 @@ def ma_k19_check(torch, x, replaces: str, mean: bool, copies: int):
     same = bool(torch.equal(got.view(torch.int32), ref.view(torch.int32)))
     err = float((got - ref).abs().max())
     del got, ref
-    library = (lambda: x.mean(0)) if mean else (lambda: torch.sum(x, 0))
+    def library():
+        total = x.mean(0) if mean else torch.sum(x, 0)
+        return total.expand(copies, m).contiguous()
+
     timer = time_events_ms if n * m * 4 > 64 << 20 else time_ms
     return dict(
         name="mesh_allreduce", tol=f"bit-exact ({'mean' if mean else 'sum'}"
@@ -3607,7 +3866,8 @@ def run_ma_phase(torch, np, mv, device, dictionary, tokenized, card: str,
 
 
 def run_step_kernels_phase(torch, np, mv, device, dictionary, tokenized,
-                           card: str, dim: int, scale_down: int):
+                           card: str, dim: int, scale_down: int,
+                           only: str = "all"):
     """The word2vec step kernels K4-K7 alone, each held and timed as
     phases 3, 6 and 7 hold it (``step_result``) at the shape of every
     path that runs it (``ps``, the local and PS modes but the per-pair
@@ -3621,9 +3881,11 @@ def run_step_kernels_phase(torch, np, mv, device, dictionary, tokenized,
               "banded_sgns_grad", _CSRC + "banded_sgns.cu", _REF + "729",
               True)]
     cases += [(f"local_{m}", f, C, G, k, s, r, False)
-              for m, f, C, G, k, s, r in LOCAL_MODES if m != "per_pair"]
+              for m, f, C, G, k, s, r in LOCAL_MODES]
     cases += [(p, f, C, G, k, s, r, True) for p, f, C, G, k, s, r in PS_MODES
-              if p not in ("ps_per_pair", "ps_sgns_g8")]
+              if p != "ps_sgns_g8"]
+    chosen = set(only.split(",")) if only != "all" else None
+    cases = [c for c in cases if chosen is None or c[4] in chosen]
     results = []
     for path, flags, C, G, name, source, replaces, ps in cases:
         config = Word2VecConfig(**{**dict(
@@ -3648,15 +3910,37 @@ def run_step_kernels_phase(torch, np, mv, device, dictionary, tokenized,
                 results += report([step_result(
                     torch, kernel, plain, args, n_bytes, flops, name,
                     source, replaces, path)], card, path)
+                if path == "ps_per_pair":
+                    tables = random_tables(torch, trainer.device,
+                                           model_shapes(model))
+                    ps_pair_block_step(torch, trainer, *tables, path)
+                    del tables
             del args
         finally:
             if ps:
                 mv.shutdown()
         del model, trainer
         free(torch, device)
-    if device.type == "cuda":
+    if device.type == "cuda" and chosen is None:
         check_wide_blocks(torch, device)
+    if device.type == "cuda" and (chosen is None
+                                  or "sparse_lr_apply" in chosen):
+        results += report(lr_apply_case(torch, np, device), card,
+                          "lr_sparse_local")
     return results
+
+
+def lr_apply_case(torch, np, device):
+    """K11 and K12 (with K20) at ``lr_sparse_local``'s shapes (the first
+    of phase 9's batches): held and timed as phase 9 holds them, K12
+    split launch by launch. An earlier tree's K12 (no K20) is timed the
+    same way."""
+    keys, values, labels = criteo_like(np, LR_BATCH, seed=9)
+    batch = lr_batches(np, keys, values, labels, LR_BATCH)[0]
+    gen = torch.Generator(device=device)
+    gen.manual_seed(17)
+    return lr_case(torch, np, "lr_sparse_local", lr_config(_LR_SGD),
+                   batch, gen, device, ps=False)
 
 
 def kernels_line(results, counts):
@@ -3685,10 +3969,13 @@ def main(argv=None) -> int:
     parser.add_argument("--ma-only", action="store_true",
                         help="build, then run phase 12 alone on the "
                              "bench corpus (no result line)")
-    parser.add_argument("--step-kernels-only", action="store_true",
+    parser.add_argument("--step-kernels-only", nargs="?", const="all",
+                        default="", metavar="NAMES",
                         help="build, then hold and time the word2vec "
-                             "step kernels K4-K7 alone at every path's "
-                             "shape (no result line)")
+                             "step kernels K4-K8 alone at every path's "
+                             "shape, and K12 with K20 at lr_sparse_local's "
+                             "(no result line); NAMES (comma-separated "
+                             "kernel names) keeps those alone")
     args = parser.parse_args(argv)
     import numpy as np
     import torch
@@ -3718,6 +4005,7 @@ def main(argv=None) -> int:
                 if line.startswith("==") or "Used" in line \
                         or "spill" in line or "Compiling" in line:
                     log(f"[build]   {line.strip()}")
+        log_ftz(build.library()._name)
     sentences = 400 if rehearsal else None
     centers = 256 if rehearsal else CENTERS
     dim = 16 if rehearsal else DIM
@@ -3729,7 +4017,8 @@ def main(argv=None) -> int:
             reuse_huffman_trees()
             run_step_kernels_phase(torch, np, mv, device, dictionary,
                                    tokenized, card, dim,
-                                   64 if rehearsal else 1)
+                                   64 if rehearsal else 1,
+                                   args.step_kernels_only)
             print(card, flush=True)
             return 3 if rehearsal else 0
         if args.multiserver_only or args.ma_only:

@@ -29,8 +29,11 @@ PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 
+#: ``-ftz=true``: float32 operations flush subnormal inputs and results
+#: to a zero of their sign, as the reference's do (XLA's CPU runtime
+#: sets flush-to-zero and denormals-are-zero; ``kernels/flush.py``).
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-Xcompiler", "-fPIC"]
+              "-O3", "-ftz=true", "-Xcompiler", "-fPIC"]
 
 # Held around the first build: several threads (the rank threads of a
 # LocalCluster, each zoo's server actor) may reach their first kernel
@@ -68,17 +71,18 @@ SIGNATURES = {
                              _F, _P, _P, _P, _P, _P, _P, _P],
     "mv_hs_cbow_grad": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
                         _P, _P, _P, _P, _P, _P, _P, _P],
-    "mv_pair_offset_grad": [_P, _P, _P, _I, _I, _I, _F, _P, _P, _P, _P,
-                            _P, _P, _P],
+    "mv_pair_offset_grad": [_P, _P, _P, _P, _I, _I, _I, _F, _I, _P, _P, _P,
+                            _P, _P, _P, _P, _P],
     "mv_pairlist_ns_grad": [_P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I,
                             _F, _I, _P, _P, _P, _P, _P, _P, _P],
     "mv_pairlist_hs_grad": [_P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _F,
                             _I, _P, _P, _P, _P, _P, _P, _P],
     "mv_sparse_lr_forward": [_P, _P, _P, _I64, _I, _P, _P, _I, _I, _P, _P,
                              _I, _I, _F, _F, _F, _F, _P, _P, _P, _P, _P],
-    "mv_sparse_lr_apply": [_P, _P, _P, _I, _P, _P, _P, _P, _I64, _I, _P, _P,
-                           _P, _I, _P, _I, _F, _I, _F, _F, _F, _F, _F, _P,
-                           _P, _P, _P, _P, _P],
+    "mv_sparse_lr_apply": [_P, _P, _P, _I, _I64, _P, _P, _I64, _P, _P, _I,
+                           _P, _I, _F, _I, _F, _F, _F, _F, _F, _P, _P, _P,
+                           _P, _P, _I64, _P, _P, _P, _P, _P],
+    "mv_key_sort": [_P, _I64, _I64, _I, _P, _P, _P, _P, _P, _P, _P],
     "mv_row_rule_apply": [_I, _P, _I64, _I64, _P, _I, _I, _P, _P, _I64, _P,
                           _I64, _I, _F, _F, _F, _F, _P],
     "mv_rows_apply_gather": [_I, _P, _I64, _I64, _P, _I, _I, _P, _P, _P,

@@ -17,9 +17,12 @@ Together they replace ``make_sparse_step``
   batch's UNIQUE touched rows, plus the regularization of their old
   weights, and applies the sgd or FTRL update to those rows in place.
   The touched rows follow JAX's ``.at[keys].add``: ids in [-R, -1] wrap,
-  every other out-of-range id is dropped. The ids are prepared in plain
-  torch (``touched_rows``: a stable sort into a CSR of occurrences); the
-  arithmetic is the kernel's.
+  every other out-of-range id is dropped. On the card the ids are
+  sorted by K20 (``keysort.py``) and the kernel sums each row's run of
+  sorted positions in a fixed order, level by level (K3's levels over
+  tiles of ``SPAN``: ``rows.scatter_levels``),
+  with no host sync; the plain version prepares them with ``touched_rows``
+  (a stable sort into a CSR of occurrences).
 
 On a CUDA tensor each wrapper launches its kernel
 (``csrc/sparse_logreg.cu``; both bound by bytes) or raises; on a CPU
@@ -38,12 +41,14 @@ import torch
 
 from . import build
 from ._launch import is_plain, require, stream_of
+from .keysort import key_sort
+from .rows import scatter_levels
 
 ACT_LINEAR, ACT_SIGMOID, ACT_SOFTMAX = 0, 1, 2
 REG_NONE, REG_L1, REG_L2 = 0, 1, 2
 LOG_CLIP = 1e-6  # ref: objective.cpp:16-18
-#: Positions one K12 warp sums; a row with more is split over warps.
-TASK = 256
+#: Sorted positions one K12 warp sums at a level (``kSpan``).
+SPAN = 256
 
 
 @dataclass(frozen=True)
@@ -305,21 +310,34 @@ def sparse_lr_apply(table: Table, keys: torch.Tensor, values: torch.Tensor,
                     scale: float = 1.0, ftrl: Optional[Ftrl] = None,
                     delta_rows: bool = False,
                     push: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
-                    ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+                    ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
     """K12: the update of the rows ``keys`` touches, in place. ``table``
     is ``w [R, C]`` (sgd: ``w -= scale * g``) or ``(z, n)`` with
     ``ftrl``; ``diff [B, C]`` is K11's; ``count`` a one-element float32
-    tensor, ``max(#(weight > 0), 1)``. ``delta_rows`` (sgd) asks for the
-    rows' ``scale * g``; ``push`` (FTRL) is a pair of zeroed ``[R, C]``
-    buffers that receive ``g - sigma * w`` and ``g^2`` at those rows.
-    Returns (the touched rows, sorted int64 [U], the delta rows [U, C]
-    or None)."""
+    tensor, ``max(#(weight > 0), 1)``. ``push`` (FTRL) is a pair of
+    zeroed ``[R, C]`` buffers that receive ``g - sigma * w`` and ``g^2``
+    at those rows. ``delta_rows`` (sgd) asks for the touched rows and
+    their ``scale * g``: returns (rows int64 [B*K]: the U touched rows
+    ascending, then R; delta [B*K, C]: the first U rows theirs), else
+    (None, None). On the card the ids are sorted by K20 and nothing
+    waits for the card: the call makes no host sync."""
     first = table if ftrl is None else table[0]
-    touched = touched_rows(keys, first.shape[0])
+    R = first.shape[0]
+    want_rows = delta_rows and ftrl is None
     if is_plain(first):
-        return touched.rows, sparse_lr_apply_plain(
-            table, touched, values, diff, count, reg, coef, scale, ftrl,
-            delta_rows, push)
+        touched = touched_rows(keys, R)
+        delta = sparse_lr_apply_plain(table, touched, values, diff, count,
+                                      reg, coef, scale, ftrl, want_rows,
+                                      push)
+        if not want_rows:
+            return None, None
+        n, U = keys.numel(), touched.rows.numel()
+        rows = torch.full((n,), R, dtype=torch.int64, device=first.device)
+        rows[:U] = touched.rows
+        out = torch.zeros((n, first.shape[1]), dtype=torch.float32,
+                          device=first.device)
+        out[:U] = delta
+        return rows, out
     w = _check_table(table, ftrl)
     dev = w.device
     require(keys, "keys", torch.int32, dev, 2)
@@ -337,35 +355,36 @@ def sparse_lr_apply(table: Table, keys: torch.Tensor, values: torch.Tensor,
             require(t, name, torch.float32, dev, 2)
             if t.shape != w.shape:
                 raise ValueError(f"{name}: shape {tuple(t.shape)}")
-    U = touched.rows.numel()
-    tasks = (touched.counts + TASK - 1) // TASK
-    task_start = torch.zeros(U + 1, dtype=torch.int64, device=dev)
-    torch.cumsum(tasks, 0, out=task_start[1:])
-    n_tasks = int(task_start[-1])
-    task_row = torch.repeat_interleave(
-        torch.arange(U, dtype=torch.int32, device=dev), tasks,
-        output_size=n_tasks)
-    partial = torch.empty(n_tasks * C, dtype=torch.float32, device=dev)
-    arrived = torch.zeros(U, dtype=torch.int32, device=dev)
-    delta = torch.empty((U, C), dtype=torch.float32, device=dev) \
-        if delta_rows and ftrl is None else None
+    n = B * K
+    sorted_keys, order = key_sort(keys, R)
+    sizes = scatter_levels(n, SPAN)
+    cap_a = sizes[1] if len(sizes) > 1 else 0
+    cap = cap_a + (sizes[2] if len(sizes) > 2 else 0)
+    slot_ids = torch.empty(2 * cap, dtype=torch.int32, device=dev)
+    slot_vals = torch.empty(cap * C, dtype=torch.float32, device=dev)
+    rows = delta = delta_end = tile_ends = None
+    if want_rows:
+        rows = torch.empty(n, dtype=torch.int64, device=dev)
+        delta = torch.empty((n, C), dtype=torch.float32, device=dev)
+        delta_end = torch.empty((n, C), dtype=torch.float32, device=dev)
+        tile_ends = torch.empty(-(-n // SPAN), dtype=torch.int32,
+                                device=dev)
     f = ftrl or Ftrl(1.0, 0.0, 0.0, 0.0)
     lib = build.library()
     build.check(lib.mv_sparse_lr_apply(
         w.data_ptr() if ftrl is None else None,
         None if ftrl is None else table[0].data_ptr(),
-        None if ftrl is None else table[1].data_ptr(), C,
-        touched.rows.data_ptr(), touched.starts.data_ptr(),
-        task_row.data_ptr(), task_start.data_ptr(), n_tasks, TASK,
-        touched.occ.data_ptr(), values.data_ptr(), diff.data_ptr(), K,
-        count.data_ptr(), reg, float(coef), int(ftrl is not None),
-        f.alpha, f.beta, f.lambda1, f.lambda2, float(scale), _ptr(delta),
-        None if push is None else push[0].data_ptr(),
-        None if push is None else push[1].data_ptr(),
-        partial.data_ptr(), arrived.data_ptr(), stream_of(w)),
-        "sparse_lr_apply")
+        None if ftrl is None else table[1].data_ptr(), C, R,
+        sorted_keys.data_ptr(), order.data_ptr(), n, values.data_ptr(),
+        diff.data_ptr(), K, count.data_ptr(), reg, float(coef),
+        int(ftrl is not None), f.alpha, f.beta, f.lambda1, f.lambda2,
+        float(scale), None if push is None else push[0].data_ptr(),
+        None if push is None else push[1].data_ptr(), slot_ids.data_ptr(),
+        slot_ids[cap:].data_ptr(), slot_vals.data_ptr(), cap_a,
+        _ptr(delta_end), _ptr(tile_ends), _ptr(rows), _ptr(delta),
+        stream_of(w)), "sparse_lr_apply")
     sparse_lr_apply.launches += 1
-    return touched.rows, delta
+    return rows, delta
 
 
 sparse_lr_apply.launches = 0

@@ -39,6 +39,11 @@ sequential sums (``scatter_levels``). ``row_scatter_add_ordered`` is the
 plain version of that order: bit for bit the kernel's sums on any
 device, and bit for bit the sequential plain version wherever no run
 crosses a cut.
+
+Every float operation flushes float32 subnormals on its inputs and its
+result, as the reference's (``flush``): the kernels through ``-ftz=true``,
+the plain versions through ``flush.add_rows`` and ``flush.flush``. A
+gather moves bits and flushes nothing.
 """
 
 from __future__ import annotations
@@ -49,6 +54,7 @@ import torch
 
 from . import build
 from ._launch import is_plain, require, stream_of
+from .flush import add_rows, flush
 
 
 def _wrapped(ids: torch.Tensor, rows: int):
@@ -115,9 +121,9 @@ def row_scatter_add_plain(data: torch.Tensor, ids: torch.Tensor,
                           distinct: bool = False) -> None:
     """Plain version of K3: ``data[ids[i], :d] += sign * delta[i]`` for
     the first ``delta.shape[0]`` ids, in place, duplicates summed in
-    position order; out-of-range ids are masked out BEFORE
-    ``index_add_``, which raises on them. ``distinct``: CHECK the
-    caller's claim first (``_check_distinct``)."""
+    position order, each add flushed (``flush.add_rows``); out-of-range
+    ids are masked out first. ``distinct``: CHECK the caller's claim
+    first (``_check_distinct``)."""
     k_delta, d_cols = delta.shape
     if distinct:
         _check_distinct(ids, k_delta, data.shape[0])
@@ -125,7 +131,7 @@ def row_scatter_add_plain(data: torch.Tensor, ids: torch.Tensor,
     src = delta[ok]
     if sign < 0:
         src = -src
-    data[:, :d_cols].index_add_(0, flat[ok], src)
+    add_rows(data[:, :d_cols], flat[ok], src)
 
 
 class ScatterPlan(NamedTuple):
@@ -163,13 +169,14 @@ def run_heads(keys: torch.Tensor) -> torch.Tensor:
     return heads
 
 
-def scatter_levels(n: int) -> List[int]:
+def scatter_levels(n: int, chunk: int = CHUNK) -> List[int]:
     """Key counts of the sorted scatter's levels: ``n`` sorted keys cut
-    into tasks of ``CHUNK``, then two slots a task, until one task holds
-    a level (the kernel's launches, one a level)."""
+    into tasks of ``chunk``, then two slots a task, until one task holds
+    a level (the kernel's launches, one a level; K12 cuts tiles of
+    ``logreg.SPAN``)."""
     sizes = [n]
-    while n > CHUNK:
-        n = 2 * (-(-n // CHUNK))
+    while n > chunk:
+        n = 2 * (-(-n // chunk))
         sizes.append(n)
     return sizes
 
@@ -206,7 +213,7 @@ def _ordered_level(data: torch.Tensor, keys: torch.Tensor,
         tail = after & (key == last)
         x0 = table.index_select(0, key.clamp(0, max(rows - 1, 0)).long())
         init = torch.where((head | tail)[:, None], torch.zeros_like(x0), x0)
-        acc = torch.where(start[:, None], init, acc) + V[:, t]
+        acc = flush(torch.where(start[:, None], flush(init), acc) + V[:, t])
         end = live & ((t + 1 >= cnt) |
                       (K[:, min(t + 1, CHUNK - 1)] != key))
         fin = end & (key >= 0) & (key < rows)
@@ -227,10 +234,11 @@ def row_scatter_add_ordered(data: torch.Tensor, plan: ScatterPlan,
                             delta: torch.Tensor, sign: float = 1.0) -> None:
     """The sorted scatter's sums in the kernel's order, in place, on any
     device: ``data[key] += sign * delta[order]`` over ``plan``. The
-    kernel (``mv_row_scatter_add_sorted``) must match it bit for bit."""
+    kernel (``mv_row_scatter_add_sorted``) must match it bit for bit,
+    subnormals flushed as the kernel's ``.ftz`` adds flush them."""
     if plan.keys.numel() == 0:
         return
-    vals = delta.index_select(0, plan.order) * sign
+    vals = flush(delta.index_select(0, plan.order) * sign)
     level = (plan.keys, vals)
     while level is not None:
         level = _ordered_level(data, level[0], level[1], plan.rows)
@@ -366,7 +374,7 @@ def row_scatter_add_bounded_plain(data: torch.Tensor, ids: torch.Tensor,
     src = delta[ok]
     if sign < 0:
         src = -src
-    data[:, :d_cols].index_add_(0, local[ok], src)
+    add_rows(data[:, :d_cols], local[ok], src)
 
 
 def row_scatter_add_bounded(data: torch.Tensor, ids: torch.Tensor,

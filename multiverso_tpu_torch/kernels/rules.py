@@ -15,7 +15,8 @@ same bits on every run.
 
 Both follow JAX's semantics: ids in [-R, -1] wrap, for the table and the
 state alike; every other out-of-range id (the pad sentinel R among them)
-is dropped and gathers a zero row. An id that repeats takes its step
+is dropped and gathers a zero row; float32 subnormals flush on every
+operation's inputs and result (``flush``). An id that repeats takes its step
 from the rows and state as they were before the call, every step lands
 on the table and the state row keeps the LAST occurrence's value. A
 worker at or past the state's slots reads zero state and its state
@@ -40,6 +41,7 @@ import torch
 
 from . import build
 from ._launch import is_plain, require, stream_of
+from .flush import add_rows, flush
 from .rows import (_wrapped, level_slots, row_gather_plain,
                    row_scatter_add_plain, scatter_plan)
 
@@ -77,19 +79,25 @@ def _inv_sqrt(x: torch.Tensor) -> torch.Tensor:
 def rule_step(rule: str, hyp, x0: torch.Tensor, s0: torch.Tensor,
               dv: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """(step subtracted from the table, new state) of a stateful rule,
-    elementwise, in the reference's expression order."""
+    elementwise, in the reference's expression order, every operation
+    flushed on its inputs and its result (``flush``)."""
     m, lr, rho, lam = (np.float32(v) for v in hyp)
+    f = flush
+    x0, s0, dv = f(x0), f(s0), f(dv)
     if rule == "momentum":
-        smooth = scalar(m, dv) * s0 + scalar(np.float32(1) - m, dv) * dv
+        smooth = f(f(scalar(m, dv) * s0)
+                   + f(scalar(np.float32(1) - m, dv) * dv))
         return smooth, smooth
-    grad = dv / scalar(safe_lr(lr), dv)
+    grad = f(dv / scalar(safe_lr(lr), dv))
     if rule == "adagrad":
-        g_sqr = s0 + grad * grad
-        step = scalar(rho, dv) * grad * _inv_sqrt(
-            g_sqr + scalar(ADAGRAD_EPS, dv))
+        g_sqr = f(s0 + f(grad * grad))
+        step = f(f(scalar(rho, dv) * grad) * _inv_sqrt(
+            f(g_sqr + scalar(ADAGRAD_EPS, dv))))
         return step, g_sqr
-    step = dv + scalar(lr, dv) * scalar(lam, dv) * grad * grad * (x0 - s0)
-    return step, x0 - step
+    lr_lam = f(scalar(lr, dv) * scalar(lam, dv))
+    comp = f(f(f(lr_lam * grad) * grad) * f(x0 - s0))
+    step = f(dv + comp)
+    return step, f(x0 - step)
 
 
 def _check_state(rule: str, state, stateful: bool = False) -> None:
@@ -140,7 +148,7 @@ def row_rule_apply_plain(rule: str, data: torch.Tensor,
     s0 = torch.zeros_like(x0) if rows_state is None else torch.where(
         ok[:, None], rows_state.index_select(0, safe)[:, :d], zero)
     step, s_new = rule_step(rule, hyp, x0, s0, dv)
-    data[:, :d].index_add_(0, flat[ok], -step[ok])
+    add_rows(data[:, :d], flat[ok], -step[ok])
     if rows_state is None:
         return
     # The state row keeps its last occurrence's value.

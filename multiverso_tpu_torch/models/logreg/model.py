@@ -165,9 +165,10 @@ class PSModel:
                   "row ids out of range [0, num_row)")
             loss_sum, _, rows, delta = self._step(
                 self._w, *args, scale=scale, delta_rows=True)
-            # Sorted unique rows: the server's engine finds them
-            # ascending and K3 adds them with one writer a row, no sort.
-            rows = rows.cpu().numpy()
+            # Sorted unique rows, on the host (one copy from the card):
+            # the server's engine finds them ascending and K3 adds them
+            # with one writer a row, no sort.
+            rows = rows.numpy()
             pushed = int(np.searchsorted(rows, config.input_size))
             self._table.add_rows_async(rows[:pushed].astype(np.int32),
                                        delta[:pushed])

@@ -93,8 +93,10 @@ class SparseStep:
     -> (loss_sum, correct, touched rows, delta rows or None)``.
     ``table`` is ``w [input_size + 1, C]`` (last row = padding) with
     ``w -= scale * grad`` on the touched rows, or ``(z, n)`` for FTRL
-    (``ftrl`` given). ``delta_rows`` returns the rows' ``scale * grad``
-    (the PS push); ``push`` takes FTRL's ``(g - sigma*w, g^2)``."""
+    (``ftrl`` given). ``delta_rows`` returns the touched rows ascending
+    as a host tensor (the PS push's ids: one copy from the card) and
+    their ``scale * grad`` rows on the table's device, else None for
+    both; ``push`` takes FTRL's ``(g - sigma*w, g^2)``."""
 
     def __init__(self, config: Configure, ftrl: Optional[lrk.Ftrl] = None):
         self.act = _act_code(config.objective_type)
@@ -111,6 +113,12 @@ class SparseStep:
         rows, delta = lrk.sparse_lr_apply(
             table, keys, values, diff, count, reg=self.reg, coef=self.coef,
             scale=scale, ftrl=self.ftrl, delta_rows=delta_rows, push=push)
+        if rows is not None:
+            # The touched rows, then the sentinel R: cut at R on the host.
+            rows = rows.cpu()
+            touched = int(torch.searchsorted(
+                rows, torch.tensor(table.shape[0], dtype=rows.dtype)))
+            rows, delta = rows[:touched], delta[:touched]
         return loss.sum(), hit.sum(), rows, delta
 
 

@@ -64,7 +64,7 @@ from ...kernels.cbow import banded_cbow_grad
 from ...kernels.hs import banded_hs_sg_grad, hs_cbow_grad
 from ...kernels.mesh import mesh_allreduce
 from ...kernels.objective import offsets
-from ...kernels.pair import pair_offset_grad
+from ...kernels.pair import pair_offset_grad, pair_offset_grad_
 from ...kernels.rows import row_gather, row_scatter_add
 from ...kernels.segments import segment_merge, segment_split
 from ...kernels.sgns import banded_sgns_grad
@@ -189,8 +189,9 @@ def _block_ids(config, tables, C: int, B: int, per_pair: bool, draws,
 
 
 def _pair_block_step(config, C: int, pmask, lr, inv_w, v, u):
-    """The per-pair mode's PS step: its 2W sub-steps (K8) with the RAW
-    lr against LOCAL copies of the pulled rows, each slice add in place;
+    """The per-pair mode's PS step: its 2W sub-steps (K8's in-place form)
+    with the RAW lr against LOCAL copies of the pulled rows, the band
+    slice and the offset's negatives taking their gradients in place;
     the push is the net change times ``inv_w`` (ref: _block_step_fn
     per_pair, communicator.cpp:157-249)."""
     W, K = config.window, config.negative
@@ -200,12 +201,8 @@ def _pair_block_step(config, C: int, pmask, lr, inv_w, v, u):
     pm_cols = pmask.T.contiguous()
     loss = None
     for j, off in enumerate(offsets(W)):
-        u_pos = u_cur[W + off:W + off + C]
-        d_v, d_u, sub_loss, _ = pair_offset_grad(
-            v_cur, torch.cat([u_pos, u_negs[j]]), pm_cols[j], K, scale)
-        v_cur += d_v
-        u_pos += d_u[:C]
-        u_negs[j] += d_u[C:]
+        sub_loss, _ = pair_offset_grad_(v_cur, u_cur[W + off:W + off + C],
+                                        u_negs[j], pm_cols[j], K, scale)
         loss = sub_loss if loss is None else loss + sub_loss
     return (v_cur - v) * inv_w, (u_cur - u) * inv_w, loss, pmask.sum()
 

@@ -18,7 +18,9 @@ updater/, src/updater/updater.cpp:23-58):
 The reference's rules are pure functions whose storage XLA updates in
 place through buffer donation (``donate_argnums``,
 ``multiverso_tpu/updater/engine.py:83-84``); here each rule updates the
-table tensor and its state IN PLACE. ``dense`` is elementwise torch;
+table tensor and its state IN PLACE. ``dense`` is elementwise torch,
+every operation flushing float32 subnormals on its inputs and result
+as the reference's does (``kernels/flush.py``);
 ``rows`` runs the row scatter-add kernel (K3, ``kernels/rows.py``) for
 the stateless rules — duplicate ids sum, out-of-range ids drop — and
 K13 (``kernels/rules.py``) for the stateful ones, where every occurrence
@@ -38,6 +40,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from ..kernels.flush import add_, flush
 from ..kernels.rows import row_scatter_add, row_scatter_add_bounded
 from ..kernels.rules import ADAGRAD_EPS  # noqa: F401 (the reference's name)
 from ..kernels.rules import row_rule_apply, rows_apply_gather, rule_step
@@ -95,7 +98,7 @@ class DefaultRule(UpdaterRule):
     name = "default"
 
     def dense(self, data, state, delta, hyp, worker_id):
-        data += delta
+        add_(data, delta)
         return data, state
 
     sign = 1.0
@@ -121,7 +124,7 @@ class SGDRule(DefaultRule):
     sign = -1.0
 
     def dense(self, data, state, delta, hyp, worker_id):
-        data -= delta
+        add_(data, delta, -1)
         return data, state
 
 
@@ -145,7 +148,7 @@ class MomentumRule(UpdaterRule):
 
     def dense(self, data, state, delta, hyp, worker_id):
         step, smooth = rule_step(self.name, hyp, data, state, delta)
-        data -= step
+        add_(data, step, -1)
         state.copy_(smooth)
         return data, state
 
@@ -162,7 +165,7 @@ class AdaGradRule(UpdaterRule):
     def dense(self, data, state, delta, hyp, worker_id):
         step, g_sqr = rule_step(self.name, hyp, data,
                                 _read_slot(state, worker_id), delta)
-        data -= step
+        add_(data, step, -1)
         if worker_id < state.shape[0]:
             state[worker_id].copy_(g_sqr)
         return data, state
@@ -181,11 +184,13 @@ class DCASGDRule(UpdaterRule):
         return _per_worker_zeros(shape, dtype, num_workers, device)
 
     def dense(self, data, state, delta, hyp, worker_id):
+        f = flush
         lr = scalar(hyp[1], data)
-        grad = delta / scalar(_safe_lr(hyp[1]), data)
-        comp = scalar(hyp[3], data) * grad * grad * (
-            data - _read_slot(state, worker_id))
-        data -= delta + lr * comp
+        delta = f(delta)
+        grad = f(delta / scalar(_safe_lr(hyp[1]), data))
+        comp = f(f(f(scalar(hyp[3], data) * grad) * grad)
+                 * f(f(data) - f(_read_slot(state, worker_id))))
+        add_(data, f(delta + f(lr * comp)), -1)
         if worker_id < state.shape[0]:
             # A copy of the new table, never a view of the live storage.
             state[worker_id].copy_(data)
