@@ -26,9 +26,13 @@ Phases, each fatal on failure:
    version and — where one PyTorch call computes the same function —
    that call, with torch.profiler; the step kernel (here and in phases
    6, 7 and 12: ``step_result``) is also launched twice (the same bits
-   required) and timed launch by launch (each kernel's name, ms a call
-   and share of the wrapper's time); also K4 and K5 with a negative
-   block wider than a thread block, at a small width, and every form of
+   required), timed launch by launch (each kernel's name, ms a call
+   and share of the wrapper's time; K5 and K7 must show no band pass)
+   and with CUDA events, and launched once more after the timed calls
+   (the same bits again); the span kernels' shared-memory layouts
+   (K4-K7) as the wrappers size them against the kernels'; also K4 and
+   K5 with a negative block wider than a thread block, at a small
+   width, and every form of
    K2, K3, K15 and K16 (narrow and wide rows, distinct and repeating
    ids) at widths 1, 3, 50 and 128; and K3 in both forms and K14's
    default and sgd arms on tables and deltas full of float32 subnormals,
@@ -126,7 +130,11 @@ Phases, each fatal on failure:
    ``tbl_fused_default`` (``add_get_dirty_device`` with a device mirror
    of the ids: K14), and ``tbl_dirty_<rule>`` (K13, K2) and
    ``tbl_fused_<rule>`` (K14, host ids) for momentum, adagrad and
-   dcasgd on a pipelined table; finally the tests' small op sequence
+   dcasgd on a pipelined table; K13 and K14 under each stateful rule
+   bit for bit against their plain versions on the CPU (20,000 ids of a
+   100,000 x 50 table: the kernels fuse products as the reference's XLA
+   does, ROADMAP C13, ``tbl_exact_stateful``), beside the tolerance
+   check above; finally the tests' small op sequence
    under each rule on the card and on the CPU (ids equal, values,
    tables and state within rtol 1e-4 / atol 1e-6);
 11. several servers in one process: the main path (PS SGNS at phase 2's
@@ -151,7 +159,8 @@ Phases, each fatal on failure:
    then K19 ``mesh_allreduce``'s mean of the replicas; K1, K2, K4 and K3
    against their plain versions at slot 0's first step, K19 bit for
    bit at the path's shape in both forms (the mean to one copy, the sum
-   to four), timed beside ``x.mean(0)`` / ``torch.sum(x, 0)``; 1 warm-up
+   to four), timed beside ``x.mean(0)`` / ``torch.sum(x, 0)`` (the mean
+   form and ``x.mean(0)`` five times each, in turn, medians); 1 warm-up
    and 4 counted groups (raw words/s of all slots, then profiled:
    device ms a group, K19's share); finite tables; the reference
    test's small MA group (8 slots) on the card and on the CPU with the
@@ -384,10 +393,15 @@ def time_split(torch, fn, reps: int = REPS):
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        split = [(evt.key, float(getattr(evt, "self_device_time_total",
-                                         0.0)) / reps / 1e3)
-                 for evt in prof.key_averages()]
-        split = sorted([s for s in split if s[1] > 0.0],
+        events = [evt for evt in prof.key_averages()
+                  if float(getattr(evt, "self_device_time_total", 0.0)) > 0]
+        short = [f"{evt.key[:40]} x{evt.count}" for evt in events
+                 if evt.count % reps]
+        if short:
+            log(f"[time] launches not a multiple of the {reps} calls "
+                f"traced (events lost?): {short}")
+        split = sorted([(evt.key, float(evt.self_device_time_total)
+                         / reps / 1e3) for evt in events],
                        key=lambda s: -s[1])
         if split:
             return split
@@ -864,10 +878,11 @@ def report(results, card: str, path: str):
 
 def check_span_layouts(D: int) -> None:
     """The span kernels' shared-memory layouts as the wrappers size them
-    (``hs.span_smem``, ``sgns.span_smem``) against the kernels' own
-    (``mv_hs_span_smem``, ``mv_banded_sgns_smem``), at the spans the
-    word2vec paths take."""
-    from multiverso_tpu_torch.kernels import build, hs, sgns
+    (``hs.span_smem``, ``sgns.span_smem``, ``cbow.span_smem``,
+    ``hs.cbow_span_smem``) against the kernels' own (``mv_hs_span_smem``,
+    ``mv_banded_sgns_smem``, ``mv_banded_cbow_smem``,
+    ``mv_hs_cbow_smem``), at the spans the word2vec paths take."""
+    from multiverso_tpu_torch.kernels import build, cbow, hs, sgns
     lib = build.library()
     W, K, L = WINDOW, NEG, 22
     for C in (8192, 32768):
@@ -875,13 +890,22 @@ def check_span_layouts(D: int) -> None:
         if hs.span_smem(S, W, D, L, warps) != lib.mv_hs_span_smem(
                 S, W, D, L, warps):
             raise AssertionError(f"K6 span layout differs at S={S}")
+        S = hs.cbow_span_geometry(C, W, D, 132)
+        if hs.cbow_span_smem(S, W, D) != lib.mv_hs_cbow_smem(S, W, D):
+            raise AssertionError(f"K7 span layout differs at S={S}")
     for C in (16384, 32768):
         S, warps = sgns.span_geometry(C, W, K, NEG_BLOCK, D)
         if sgns.span_smem(S, W, K, NEG_BLOCK, D, warps) != \
                 lib.mv_banded_sgns_smem(S, W, K, NEG_BLOCK, D, warps):
             raise AssertionError(f"K4 span layout differs at S={S}")
-    log("[kernel layouts] K4 and K6 shared memory: the wrappers' sizes "
-        "match the kernels'")
+    for C, B, d in ((16384, NEG_BLOCK, D), (32768, NEG_BLOCK, D),
+                    (2048, 512, 16), (24, 1, 3)):
+        S = cbow.span_geometry(C, W, K, B, d)
+        if cbow.span_smem(S, W, K, B, d) != lib.mv_banded_cbow_smem(
+                S, W, K, B, d):
+            raise AssertionError(f"K5 span layout differs at S={S}, B={B}")
+    log("[kernel layouts] K4-K7 shared memory: the wrappers' sizes match "
+        "the kernels'")
 
 
 def check_wide_blocks(torch, device) -> None:
@@ -1244,7 +1268,20 @@ def step_result(torch, kernel, plain, args, n_bytes: float, flops: float,
     del again, ref
     split = time_split(torch, lambda: kernel(*args))
     log_split(name, path, split)
+    # CUDA events over REPS calls (the wrappers' launches included), and
+    # the same bits again after every timed call.
+    events_ms = time_events_ms(torch, lambda: kernel(*args))
+    bits = bits and same_bits(torch, got, kernel(*args))
+    log(f"[kernel {name} @ {path}] CUDA events: {events_ms:.4f} ms a call "
+        f"(launches included); the same bits after the timed calls: "
+        f"{'yes' if bits else 'NO'}")
     extra = ""
+    if name in ("banded_cbow_grad", "hs_cbow_grad") and span_cbow():
+        # One span kernel and the one-warp sum of its partials: the band
+        # pass of the earlier form must not show.
+        single = not any("band_pass" in key for key, _ in split)
+        bits = bits and single
+        extra = f"; no band_pass launch: {'yes' if single else 'NO'}"
     if name == "pair_offset_grad":
         inplace = check_pair_inplace(torch, args, got, path)
         bits = bits and inplace
@@ -1262,6 +1299,13 @@ def step_result(torch, kernel, plain, args, n_bytes: float, flops: float,
     log(f"[kernel {name} @ {path}] bound from {n_bytes / 1e6:.1f} MB, "
         f"{flops / 1e9:.2f} GFLOP")
     return result
+
+
+def span_cbow() -> bool:
+    """Whether the tree's K5 and K7 are span kernels (an earlier tree's
+    launch a band pass after them)."""
+    from multiverso_tpu_torch.kernels import cbow
+    return hasattr(cbow, "span_geometry")
 
 
 def check_pair_inplace(torch, args, got, path: str) -> bool:
@@ -2614,6 +2658,62 @@ def tbl_check_rule(torch, rules, rule: str, replaces: str, table, state,
     return result
 
 
+def tbl_exact_stateful(torch, rules, rule: str, hyp, device, fused: bool):
+    """K13 (or K14, ``fused``, gathering the same ids) under a stateful
+    rule against its plain version on the CPU, bit for bit (int32 views
+    of the table, the state and the gathered rows): the kernels fuse a
+    product into an add exactly where the reference's XLA does
+    (``__fmaf_rn``; ROADMAP C13) and the plain versions take the exact
+    fused form (``flush.fma``), so with the phase's hyperparameters,
+    whose products round, the two agree to the bit. A 100,000 x 50 table
+    (rows not 16-byte aligned, as the bench's), 20,000 ids: 5% of them
+    repeating another's row, one row at 512 positions, wrapped and
+    out-of-range ids, the last 16 ids past the delta's rows; worker 0
+    and a worker past the slots. The plain version runs on the CPU,
+    where a run's steps add in position order, as the kernels add them.
+    Returns (ok, text)."""
+    R, C, n = 100_000, TBL_COLS, 20_000
+    gen = torch.Generator(device=device)
+    gen.manual_seed(41)
+    table = torch.randn((R, C), generator=gen, device=device) * 0.1
+    ids = torch.randint(0, R, (n,), generator=gen, device=device,
+                        dtype=torch.int32)
+    ids[:n // 20] = ids[n // 20:n // 10]
+    ids[2000:2512] = 7
+    ids[-8:] = torch.tensor([-1, -R, R, R + 5, -(R + 1), 0, R - 1,
+                             2 ** 31 - 1], dtype=torch.int32, device=device)
+    delta = torch.randn((n - 16, C), generator=gen, device=device) * 0.01
+    state = tbl_state(torch, rule, table, gen)
+    cpu = torch.device("cpu")
+    bad = []
+    for worker in (0, 3):
+        a_d, a_s = table.clone(), state.clone()
+        b_d, b_s = table.to(cpu), state.to(cpu)
+        if fused:
+            va = rules.rows_apply_gather(rule, a_d, a_s, ids, delta, hyp,
+                                         worker, ids, C)
+            vb = rules.rows_apply_gather_plain(
+                rule, b_d, b_s, ids.to(cpu), delta.to(cpu), hyp, worker,
+                ids.to(cpu), C)
+        else:
+            rules.row_rule_apply(rule, a_d, a_s, ids, delta, hyp, worker)
+            rules.row_rule_apply_plain(rule, b_d, b_s, ids.to(cpu),
+                                       delta.to(cpu), hyp, worker)
+            va = vb = torch.zeros(1)
+        for what, x, y in (("table", a_d, b_d), ("state", a_s, b_s),
+                           ("gathered", va, vb)):
+            if not torch.equal(x.to(cpu).view(torch.int32),
+                               y.view(torch.int32)):
+                diff = int((x.to(cpu).view(torch.int32)
+                            != y.view(torch.int32)).sum())
+                bad.append(f"worker {worker} {what}: {diff} differ")
+    text = ("bit for bit vs the plain version on the CPU (20,000 ids, "
+            "repeats, a row at 512 positions, edge ids, ids past the "
+            "delta, workers 0 and 3): "
+            + ("yes" if not bad else f"NO ({'; '.join(bad)})"))
+    return not bad, text
+
+
 def tbl_plain_device(torch, name: str, table):
     """Where a case's plain version runs: on the CPU for the row at 4,096
     positions, whose steps of both signs cancel in the sum — K13 and K14
@@ -2800,6 +2900,12 @@ def tbl_kernel_checks(torch, np, device, card: str):
         out[f"tbl_fused_{suffix}"] = [tbl_check_fused(
             torch, rules, suffix, table, state, cases, sets, hyp, C)]
         del state
+        for entry, fused in ((out[f"tbl_dirty_{suffix}"][0], False),
+                             (out[f"tbl_fused_{suffix}"][0], True)):
+            exact_ok, exact_text = tbl_exact_stateful(torch, rules, suffix,
+                                                      hyp, device, fused)
+            entry.update(ok=entry["ok"] and exact_ok,
+                         tol=f"{entry['tol']}; {exact_text}")
     # The grid of the deltas' largest sum: the row at 4,096 positions.
     base, grid_delta = on_grid(torch, table, run, delta)
     out["tbl_fused_default"] = [tbl_check_fused(
@@ -3500,14 +3606,30 @@ def ma_k19_check(torch, x, replaces: str, mean: bool, copies: int):
         return total.expand(copies, m).contiguous()
 
     timer = time_events_ms if n * m * 4 > 64 << 20 else time_ms
+
+    def kernel():
+        return mesh.mesh_allreduce(x, mean, copies)
+    ms, library_ms = timer(torch, kernel), timer(torch, library)
+    if mean:
+        # The mean form against ``x.mean(0)``: five rounds, the two in
+        # turn (kernel, library, library, kernel, ...), medians.
+        k_ms, l_ms = [], []
+        turn = [(kernel, k_ms), (library, l_ms)]
+        for r in range(5):
+            for fn, into in (turn if r % 2 == 0 else turn[::-1]):
+                into.append(timer(torch, fn))
+        ms, library_ms = sorted(k_ms)[2], sorted(l_ms)[2]
+        log(f"[kernel mesh_allreduce] mean form vs x.mean(0), in turn, "
+            f"M={m}: K19 {[round(t, 4) for t in k_ms]} ms, library "
+            f"{[round(t, 4) for t in l_ms]} ms; medians {ms:.4f} / "
+            f"{library_ms:.4f}")
     return dict(
         name="mesh_allreduce", tol=f"bit-exact ({'mean' if mean else 'sum'}"
         f", {n} slots, copies {copies}, M={m})", max_abs_err=err, ok=same,
-        source=_MA_SRC, replaces=replaces,
-        ms=timer(torch, lambda: mesh.mesh_allreduce(x, mean, copies)),
+        source=_MA_SRC, replaces=replaces, ms=ms,
         plain_ms=timer(torch, lambda: mesh.mesh_allreduce_plain(
             x, mean, copies)),
-        library_ms=timer(torch, library),
+        library_ms=library_ms,
         bound=bound((n + copies) * m * 4))
 
 
@@ -3921,7 +4043,8 @@ def run_step_kernels_phase(torch, np, mv, device, dictionary, tokenized,
                 mv.shutdown()
         del model, trainer
         free(torch, device)
-    if device.type == "cuda" and chosen is None:
+    if device.type == "cuda" and (chosen is None
+                                  or "banded_cbow_grad" in chosen):
         check_wide_blocks(torch, device)
     if device.type == "cuda" and (chosen is None
                                   or "sparse_lr_apply" in chosen):

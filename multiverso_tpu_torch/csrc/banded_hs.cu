@@ -42,26 +42,31 @@
 // logits, d_v and d_bp: ~3 x 2W x D FMAs a center and node) that few
 // warps an SM cannot hide; blocks of 6 warps, two an SM (168 registers
 // a thread), hide the most of them.
-//   K7 A. one block per center: the window mean, then one warp per node
-//         computes the logit, writes the node's d_path row (owned by the
-//         center) and accumulates its share of the mean's gradient; the
-//         block saves gacc[c] = g_vmean[c] / max(n_c, 1).
-//   K7 B. K5's band pass: d_band[t] = scale * sum_j pmask[c_j, j] *
-//         gacc[c_j].
+//
+// K7 is one span kernel too, then the same one-warp sum: a block owns S
+// consecutive centers (kernels/hs.py cbow_span_geometry: 32 at
+// local_hs_cbow, 64 at ps_hs_cbow) and their band positions, stages its
+// centers' windows' band rows and pair mask once (16-byte asynchronous
+// copies), and a warp takes a center: the window mean in registers,
+// then the center's own path rows straight from HBM in chunks of 8
+// nodes (the 8 loads in flight together; a masked node's row is not
+// read, its d_path row is written as zeros), 8 dot products from one
+// transposed sum, the d_path rows written once and the window gradient
+// kept in shared memory. At local_hs_cbow and ps_hs_cbow (C = 8192,
+// 32768) its bound is 176 / 706 MB (each unmasked path row read once,
+// every d_path row written once, the band rows), 0.053 / 0.211 ms at
+// 3.35 TB/s. Each path row crosses HBM once: no halo is
+// recomputed (K6's would re-read 2W paths a span); the first 2W band
+// positions take the 2W window gradients of the span before by the
+// handoff of w2v_common.cuh (cbow_publish, cbow_band). The previous form (a block a
+// center, one warp a node over a 128-float row, the window gradients
+// through a [C, D] scratch and a second launch, the band pass, 18-23% of
+// the time) ran at 2.2-2.4x its bound; this one at 1.3-1.5x (PERF.md
+// §6).
 
 #include "w2v_common.cuh"
 
 namespace {
-
-// Loss of one warp's logits, then the block's, by lane 0 of each warp.
-__device__ __forceinline__ float block_loss(float wloss, float* swl) {
-  const int lane = threadIdx.x & 31;
-  if (lane == 0) swl[threadIdx.x >> 5] = wloss;
-  __syncthreads();
-  float l = 0.0f;
-  for (int w = 0; w < kWarps; ++w) l += swl[w];
-  return l;
-}
 
 // ---- K6: the span kernel ----
 
@@ -272,88 +277,177 @@ __global__ void __maxnreg__(168)
   }
   float wpairs = 0.0f;
   for (int i = tid; i < S * W2; i += blockDim.x) wpairs += spm[W2 * W2 + i];
-  block_sums(wloss, wpairs, swl, loss_part, pairs_part);
+  block_sums(wloss, wpairs, swl, loss_part, pairs_part, blockIdx.x);
 }
 
-// ---- K7 ----
+// ---- K7: the CBOW span kernel ----
 
-__global__ void hs_cbow_center(const float* __restrict__ u_band,
-                               const float* __restrict__ u_path,
-                               const int* __restrict__ path,
-                               const int* __restrict__ code,
-                               const float* __restrict__ pmask, int C,
-                               int W, int L, int D, float scale,
-                               float* __restrict__ d_path,
-                               float* __restrict__ gacc,
-                               float* __restrict__ loss_part,
-                               float* __restrict__ ex_part) {
-  extern __shared__ float smem[];
-  const int W2 = 2 * W;
-  const int c = blockIdx.x;
-  float* svm = smem;               // [D] window mean
-  float* sacc = svm + D;           // [kWarps][D] g_vmean partials
-  float* swl = sacc + kWarps * D;  // [kWarps]
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const float* pm = pmask + (int64_t)c * W2;
-  float nvalid = 0.0f;
-  for (int j = 0; j < W2; ++j) nvalid += pm[j];
-  const float denom = fmaxf(nvalid, 1.0f);
-  const float has_ctx = nvalid > 0.0f ? 1.0f : 0.0f;
-  // Window mean, summed in offset order as the reference sums it.
-  for (int d = tid; d < D; d += kThreads) {
-    float a = 0.0f;
-    for (int j = 0; j < W2; ++j)
-      a += pm[j] * u_band[((int64_t)c + W + offset_of(j, W)) * D + d];
-    svm[d] = a / denom;
+struct HsCbowArgs {
+  const float* u_band;
+  const float* u_path;
+  const int* path;
+  const int* code;
+  const float* pmask;
+  int C, W, L, D, S;
+  float scale;
+  float* d_band;
+  float* d_path;
+  float* loss_part;
+  float* ex_part;
+  Handoff h;
+};
+
+// A warp a center: its window mean (offset order) into smean, then its
+// path in chunks of 8 nodes: the chunk's unmasked rows are loaded (a
+// lane's columns, all 8 loads in flight before the first use; a masked
+// node reads nothing), 8 dot products come out of one transposed sum,
+// lane i forms node i's coefficient, and the chunk's d_path rows are
+// written (zeros for masked nodes) and its rows added into the center's
+// window gradient, in node order. ONE: a lane owns one column (D <= 128
+// in float4s, <= 32 in floats), so the rows stay in registers between
+// the dot products and the gradient; otherwise they are read again.
+template <typename T, bool ONE>
+__global__ void __launch_bounds__(kThreads)
+    hs_cbow_span(HsCbowArgs a) {
+  extern __shared__ float4 smem4[];
+  __shared__ int s_span;
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int NW = blockDim.x >> 5;
+  const int W = a.W, W2 = 2 * W, L = a.L, D = a.D, S = a.S;
+  const CbowSpan s = cbow_span(S, W, D, NW);
+  const int DP = s.DP;
+  constexpr int kPer = sizeof(T) / sizeof(float);
+  const int NU = (D + kPer - 1) / kPer;
+  float* sband = smem + s.band;
+  float* smean = smem + s.mean;
+  float* sgacc = smem + s.gacc;
+  float* spm = smem + s.pm;
+  float* scnt = smem + s.cnt;
+  float* swl = smem + s.wl;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int span = span_ticket(a.h, &s_span);
+  const int64_t c0 = (int64_t)span * S;
+  const int own_c = (int)(a.C - c0 < S ? a.C - c0 : S);
+  const int own_pos = span + 1 == (int)gridDim.x ? own_c + W2 : S;
+
+  stage_cbow<sizeof(T) == 16>(sband, spm, a.u_band, a.pmask, c0, own_c, S,
+                              a.C, W, D, DP);
+  copy_commit();
+  copy_wait<0>();
+  __syncthreads();
+  for (int cs = tid; cs < S; cs += blockDim.x) {
+    float n = 0.0f;
+    if (cs < own_c)
+      for (int j = 0; j < W2; ++j) n += spm[(W2 + cs) * W2 + j];
+    scnt[cs] = n;
   }
-  for (int i = tid; i < kWarps * D; i += kThreads) sacc[i] = 0.0f;
   __syncthreads();
 
-  float wloss = 0.0f;
-  float* acc = sacc + warp * D;
-  for (int l = warp; l < L; l += kWarps) {
-    const int64_t r = (int64_t)c * L + l;
-    const int node = path[r];
-    const int cd = code[r];
-    const float mask = (node >= 0 && cd >= 0 ? 1.0f : 0.0f) * has_ctx;
-    float* dst = d_path + r * D;
-    if (mask != 0.0f) {
-      const float* row = u_path + r * D;
-      float dot = 0.0f;
-      for (int d = lane; d < D; d += 32) dot += svm[d] * row[d];
-      dot = warp_sum(dot);
-      const float xc = clip(dot);
-      const float y = (1.0f - (float)cd) * mask;
-      wloss += xent(xc, y) * mask;
-      const float g = xent_grad(xc, y) * clip_grad(dot) * mask;
-      for (int d = lane; d < D; d += 32) {
-        acc[d] += g * row[d];
-        dst[d] = scale * (g * svm[d]);
+  float wloss = 0.0f, wex = 0.0f;
+  for (int cs = warp; cs < own_c; cs += NW) {
+    const float n = scnt[cs], den = fmaxf(n, 1.0f);
+    const bool ctx = n > 0.0f;
+    const float* pmr = spm + (W2 + cs) * W2;
+    float* mrow = smean + (size_t)cs * DP;
+    float* grow = sgacc + (size_t)(W2 + cs) * DP;
+    T vm1 = zero_col<T>(), ga1 = zero_col<T>();
+    for (int u = lane; u < NU; u += 32) {
+      const T vm = window_mean_col<T>(sband, pmr, cs, u, W, DP, den);
+      if (ONE) {
+        vm1 = vm;
+      } else {
+        store_col(mrow, u, vm);
+        store_col(grow, u, zero_col<T>());
       }
-    } else {
-      for (int d = lane; d < D; d += 32) dst[d] = 0.0f;
     }
+    if (lane == 0 && ctx) wex += 1.0f;
+    const int64_t prow = (c0 + cs) * L;  // the center's first path row
+    for (int l0 = 0; l0 < L; l0 += 8) {
+      const int nch = L - l0 < 8 ? L - l0 : 8;
+      int cd = -1;
+      bool ok = false;
+      if (lane < nch) {
+        const int node = __ldg(a.path + prow + l0 + lane);
+        cd = __ldg(a.code + prow + l0 + lane);
+        ok = ctx && node >= 0 && cd >= 0;
+      }
+      const unsigned bits = __ballot_sync(0xffffffffu, ok);
+      const float* rows = a.u_path + (prow + l0) * D;
+      float part[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) part[i] = 0.0f;
+      T r1[8];
+      for (int u = lane; u < NU; u += 32) {
+        T r[8];
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+          r[i] = (bits >> i) & 1u ? ldg_col(rows + (size_t)i * D, u, T())
+                                  : zero_col<T>();
+        const T vm = ONE ? vm1 : load_col(mrow, u, T());
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          part[i] = dot_col(vm, r[i], part[i]);
+          if (ONE) r1[i] = r[i];
+        }
+      }
+      const float x = transpose_sum<8>(part, lane);
+      float g = 0.0f;
+      if (ok) {
+        float loss;
+        xent_pair(x, 1.0f - (float)cd, loss, g);
+        wloss += loss;
+      }
+      float gk[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) gk[i] = __shfl_sync(0xffffffffu, g, i);
+      for (int u = lane; u < NU; u += 32) {
+        const T vm = ONE ? vm1 : load_col(mrow, u, T());
+        T ga = ONE ? ga1 : load_col(grow, u, T());
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          if (i >= nch) break;
+          float* dst = a.d_path + (prow + l0 + i) * D;
+          if ((bits >> i) & 1u) {
+            stcs_col(dst, u, scale_col(a.scale, scale_col(gk[i], vm)));
+            ga = axpy_col(gk[i],
+                          ONE ? r1[i] : ldg_col(rows + (size_t)i * D, u, T()),
+                          ga);
+          } else {
+            stcs_col(dst, u, zero_col<T>());
+          }
+        }
+        if (ONE) {
+          ga1 = ga;
+        } else {
+          store_col(grow, u, ga);
+        }
+      }
+    }
+    for (int u = lane; u < NU; u += 32)
+      store_col(grow, u, div_col(ONE ? ga1 : load_col(grow, u, T()), den));
   }
   __syncthreads();
-  for (int d = tid; d < D; d += kThreads) {
-    float g = 0.0f;
-    for (int w = 0; w < kWarps; ++w) g += sacc[w * D + d];
-    gacc[(int64_t)c * D + d] = g / denom;
-  }
-  const float l = block_loss(wloss, swl);
-  if (tid == 0) {
-    loss_part[c] = l;
-    ex_part[c] = has_ctx;
-  }
+  cbow_publish<T>(a.h, sgacc, span, own_c, W, D, DP);
+  cbow_band<T>(a.h, sgacc, spm, span, own_c, own_pos, W, D, DP, a.scale,
+               a.d_band, c0);
+  block_sums(wloss, wex, swl, a.loss_part, a.ex_part, span);
+  span_done(a.h);
 }
 
-size_t center_smem(int D) {
-  return sizeof(float) * ((size_t)(1 + kWarps) * D + kWarps);
+template <typename T, bool ONE>
+cudaError_t launch_hs_cbow(const HsCbowArgs& a, int blocks, size_t smem,
+                           cudaStream_t stream) {
+  cudaError_t err = allow_smem(hs_cbow_span<T, ONE>, smem);
+  if (err != cudaSuccess) return err;
+  hs_cbow_span<T, ONE><<<blocks, kThreads, smem, stream>>>(a);
+  return cudaGetLastError();
 }
 
 }  // namespace
+
+extern "C" size_t mv_hs_cbow_smem(int S, int W, int D) {
+  return sizeof(float) * cbow_span(S, W, D, kWarps).floats;
+}
 
 extern "C" size_t mv_hs_span_smem(int S, int W, int D, int L, int warps) {
   return sizeof(float) * hs_span(S, W, D, L, warps).floats;
@@ -395,21 +489,38 @@ extern "C" cudaError_t mv_banded_hs_sg_grad(
                              pairs_out, stream);
 }
 
-// gacc is scratch [C, D]; loss_part and ex_part scratch [C].
+// S centers a span (at least 2W unless one span holds all C;
+// kernels/hs.py cbow_span_geometry) in ceil(C / S) blocks of 256
+// threads. parts: scratch [2 * blocks]; ctr [2] and flags [blocks]:
+// zero, left zero; halo: scratch [blocks][2W][D].
 extern "C" cudaError_t mv_hs_cbow_grad(
     const float* u_band, const float* u_path, const int* path,
-    const int* code, const float* pmask, int C, int W, int L, int D,
-    float scale, float* d_band, float* d_path, float* gacc,
-    float* loss_part, float* ex_part, float* loss_out, float* ex_out,
-    cudaStream_t stream) {
-  const size_t smem = center_smem(D);
-  cudaError_t err = allow_smem(hs_cbow_center, smem);
+    const int* code, const float* pmask, int C, int W, int L, int D, int S,
+    float scale, float* d_band, float* d_path, float* loss_part,
+    float* ex_part, unsigned* ctr, unsigned* flags, float* halo,
+    float* loss_out, float* ex_out, cudaStream_t stream) {
+  const int blocks = (C + S - 1) / S;
+  if (C <= 0 || S <= 0 || (blocks > 1 && S < 2 * W))
+    return cudaErrorInvalidValue;
+  const size_t smem = mv_hs_cbow_smem(S, W, D);
+  auto aligned = [](const void* p) {
+    return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
+  };
+  const bool vec = D % 4 == 0 && aligned(u_band) && aligned(u_path) &&
+                   aligned(d_band) && aligned(d_path) && aligned(halo);
+  HsCbowArgs a{u_band, u_path,    path,    code,
+               pmask,  C,         W,       L,
+               D,      S,         scale,   d_band,
+               d_path, loss_part, ex_part, Handoff{ctr, flags, halo}};
+  cudaError_t err;
+  if (vec) {
+    err = D <= 128 ? launch_hs_cbow<float4, true>(a, blocks, smem, stream)
+                   : launch_hs_cbow<float4, false>(a, blocks, smem, stream);
+  } else {
+    err = D <= 32 ? launch_hs_cbow<float, true>(a, blocks, smem, stream)
+                  : launch_hs_cbow<float, false>(a, blocks, smem, stream);
+  }
   if (err != cudaSuccess) return err;
-  hs_cbow_center<<<C, kThreads, smem, stream>>>(
-      u_band, u_path, path, code, pmask, C, W, L, D, scale, d_path, gacc,
-      loss_part, ex_part);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  return launch_band_pass(gacc, pmask, C, W, D, scale, loss_part,
-                          ex_part, C, d_band, loss_out, ex_out, stream);
+  return launch_reduce_parts(loss_part, ex_part, blocks, loss_out, ex_out,
+                             stream);
 }

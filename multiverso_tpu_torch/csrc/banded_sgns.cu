@@ -301,7 +301,7 @@ __global__ void __launch_bounds__(kThreads, 2)
                       acc[q]);
     }
   }
-  block_sums(wloss, wpairs, swl, loss_part, pairs_part);
+  block_sums(wloss, wpairs, swl, loss_part, pairs_part, blockIdx.x);
 }
 
 }  // namespace

@@ -39,83 +39,6 @@ namespace {
 constexpr int kPairWarps = 4;
 constexpr int kPairThreads = kPairWarps * 32;
 
-// The float4 or float columns a lane owns (plain loads: the in-place
-// form writes these rows in the same launch).
-__device__ __forceinline__ float4 load_col(const float* row, int u, float4) {
-  return reinterpret_cast<const float4*>(row)[u];
-}
-__device__ __forceinline__ float load_col(const float* row, int u, float) {
-  return row[u];
-}
-__device__ __forceinline__ float dot_col(float4 a, float4 b, float acc) {
-  return dot4(a, b, acc);
-}
-__device__ __forceinline__ float dot_col(float a, float b, float acc) {
-  return fmaf(a, b, acc);
-}
-__device__ __forceinline__ float4 axpy_col(float g, float4 x, float4 acc) {
-  return axpy4(g, x, acc);
-}
-__device__ __forceinline__ float axpy_col(float g, float x, float acc) {
-  return fmaf(g, x, acc);
-}
-__device__ __forceinline__ float4 scale_col(float s, float4 x) {
-  return make_float4(__fmul_rn(s, x.x), __fmul_rn(s, x.y), __fmul_rn(s, x.z),
-                     __fmul_rn(s, x.w));
-}
-__device__ __forceinline__ float scale_col(float s, float x) {
-  return __fmul_rn(s, x);
-}
-__device__ __forceinline__ float4 add_col(float4 a, float4 b) {
-  return make_float4(__fadd_rn(a.x, b.x), __fadd_rn(a.y, b.y),
-                     __fadd_rn(a.z, b.z), __fadd_rn(a.w, b.w));
-}
-__device__ __forceinline__ float add_col(float a, float b) {
-  return __fadd_rn(a, b);
-}
-__device__ __forceinline__ void store_col(float* row, int u, float4 x) {
-  reinterpret_cast<float4*>(row)[u] = x;
-}
-__device__ __forceinline__ void store_col(float* row, int u, float x) {
-  row[u] = x;
-}
-template <typename T>
-__device__ __forceinline__ T zero_col();
-template <>
-__device__ __forceinline__ float4 zero_col<float4>() {
-  return zero4();
-}
-template <>
-__device__ __forceinline__ float zero_col<float>() {
-  return 0.0f;
-}
-
-// One halving step: lanes H apart swap halves of their first 2H sums.
-template <int N, int H>
-__device__ __forceinline__ void halve_n(float (&v)[N], int lane) {
-  const bool upper = (lane & H) != 0;
-#pragma unroll
-  for (int i = 0; i < H; ++i) {
-    const float send = upper ? v[i] : v[i + H];
-    const float keep = upper ? v[i + H] : v[i];
-    v[i] = keep + __shfl_xor_sync(0xffffffffu, send, H);
-  }
-}
-
-// N per-lane partial sums over the warp: lane l ends with the total of
-// v[l % N] (log2 N halvings, then a sum over the lane groups).
-template <int N>
-__device__ __forceinline__ float transpose_sum(float (&v)[N], int lane) {
-  if constexpr (N >= 32) halve_n<N, 16>(v, lane);
-  if constexpr (N >= 16) halve_n<N, 8>(v, lane);
-  halve_n<N, 4>(v, lane);
-  halve_n<N, 2>(v, lane);
-  halve_n<N, 1>(v, lane);
-  float x = v[0];
-  for (int o = N; o < 32; o <<= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
 struct PairArgs {
   float* v;            // [C, D] center rows (written in place when inplace)
   float* u_pos;        // [C, D] context rows

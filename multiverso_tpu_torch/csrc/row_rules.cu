@@ -11,11 +11,11 @@
 // table, in one program.
 //
 // The rules, for an id r taken by a worker w with delta row dv:
-//   momentum: s' = m*s[r] + (1-m)*dv;  s[r] = s';  data[r] -= s'
-//   adagrad:  g = dv/max(lr,1e-12);  G' = G[w,r] + g*g;
+//   momentum: s' = fma(m, s[r], (1-m)*dv);  s[r] = s';  data[r] -= s'
+//   adagrad:  g = dv/max(lr,1e-12);  G' = fma(g, g, G[w,r]);
 //             data[r] -= rho*g*(1/sqrt(G'+1e-6));  G[w,r] = G'
 //   dcasgd:   g = dv/max(lr,1e-12);
-//             step = dv + lr*lambda*g*g*(data[r] - B[w,r]);
+//             step = fma(lr*lambda*g*g, data[r] - B[w,r], dv);
 //             data[r] -= step;  B[w,r] = data_old[r] - step
 // JAX's semantics for an id that repeats: every occurrence computes its
 // step from the rows and state as they were BEFORE the call, the table
@@ -58,7 +58,9 @@
 //     for bit, K3's: rows.row_scatter_add_ordered then the gather.
 //
 // The arithmetic uses the _rn intrinsics in the reference's expression
-// order, so no FMA contraction moves a rounding. AdaGrad's
+// order, and __fmaf_rn exactly where the reference's XLA contracts a
+// product into an add (above; no other contraction moves a rounding),
+// so the stateful arms equal their plain versions bit for bit. AdaGrad's
 // 1/sqrt(G + eps) is __fdiv_rn(1, __fsqrt_rn(.)), two correctly rounded
 // operations, as the plain version forms it on the CPU and on the card
 // (rsqrtf, like torch.rsqrt, is not correctly rounded).
@@ -126,20 +128,23 @@ template <int RULE>
 __device__ __forceinline__ void rule_step(const Hyp& h, float x0, float s0,
                                           float dv, float& step,
                                           float& s_new) {
+  // __fmaf_rn where the reference's XLA contracts a product into the
+  // add that follows it (ROADMAP C13; tests/test_torch_fma.py pins
+  // each): its product is neither rounded nor flushed.
   if (RULE == kMomentum) {
-    const float sm = __fadd_rn(__fmul_rn(h.m, s0), __fmul_rn(h.one_m, dv));
+    const float sm = __fmaf_rn(h.m, s0, __fmul_rn(h.one_m, dv));
     step = sm;
     s_new = sm;
   } else if (RULE == kAdaGrad) {
     const float g = __fdiv_rn(dv, h.safe_lr);
-    const float gs = __fadd_rn(s0, __fmul_rn(g, g));
+    const float gs = __fmaf_rn(g, g, s0);
     step = __fmul_rn(__fmul_rn(h.rho, g),
                      __fdiv_rn(1.f, __fsqrt_rn(__fadd_rn(gs, kAdaGradEps))));
     s_new = gs;
   } else {  // kDcasgd
     const float g = __fdiv_rn(dv, h.safe_lr);
     const float c = __fmul_rn(__fmul_rn(__fmul_rn(h.lr, h.lam), g), g);
-    step = __fadd_rn(dv, __fmul_rn(c, __fsub_rn(x0, s0)));
+    step = __fmaf_rn(c, __fsub_rn(x0, s0), dv);
     s_new = __fsub_rn(x0, step);
   }
 }

@@ -1,9 +1,10 @@
 // Device pieces shared by the word2vec step kernels (K4-K8): the clipped
 // sigmoid cross-entropy with its gradient formed as JAX's autodiff forms
-// it, warp sums, the band pass that sums the gradients of the C+2W
-// band rows from per-(center, offset) coefficients without atomics (K5,
-// K7), and the pieces of the span kernels (K4, K6): asynchronous row
-// copies into shared memory and the warp's 32-way transposed sum.
+// it, warp sums, the pieces of the span kernels (K4-K7): asynchronous
+// row copies into shared memory and the warp's transposed sums, a
+// lane's float4 or float columns (K5, K7, K8), and the CBOW spans' (K5,
+// K7) window means, band gradients and their handoff of the halo's
+// window gradients from one span to the next.
 // The plain PyTorch versions carry the same functions in
 // multiverso_tpu_torch/kernels/objective.py.
 
@@ -89,52 +90,6 @@ __device__ __forceinline__ void reduce_parts(const float* __restrict__ a,
   }
 }
 
-// The band pass: one warp per band row t of C+2W:
-//   out[t] = scale * sum_j coef[c_j*2W + j] * vec[c_j],
-//   c_j = t - W - off_j, for c_j in [0, C)
-// (K5, K7: coef = the pair mask, vec = the gradient of each center's
-// window sum). Block `band_blocks` sums the partials.
-__global__ void band_pass(const float* __restrict__ vec,
-                          const float* __restrict__ coef, int C, int W,
-                          int D, float scale, int64_t band_blocks,
-                          const float* __restrict__ loss_part,
-                          const float* __restrict__ count_part, int nparts,
-                          float* __restrict__ out,
-                          float* __restrict__ loss_out,
-                          float* __restrict__ count_out) {
-  if (blockIdx.x == band_blocks) {
-    reduce_parts(loss_part, count_part, nparts, loss_out, count_out);
-    return;
-  }
-  const int lane = threadIdx.x & 31;
-  const int W2 = 2 * W;
-  const int64_t t = (blockIdx.x * (int64_t)kThreads + threadIdx.x) >> 5;
-  if (t >= (int64_t)C + W2) return;
-  float* dst = out + t * D;
-  for (int d = lane; d < D; d += 32) {
-    float g = 0.0f;
-    for (int j = 0; j < W2; ++j) {
-      const int64_t c = t - W - offset_of(j, W);
-      if (c >= 0 && c < C) g += coef[c * W2 + j] * vec[c * D + d];
-    }
-    dst[d] = scale * g;
-  }
-}
-
-inline cudaError_t launch_band_pass(const float* vec, const float* coef,
-                                    int C, int W, int D, float scale,
-                                    const float* loss_part,
-                                    const float* count_part, int nparts,
-                                    float* out, float* loss_out,
-                                    float* count_out, cudaStream_t stream) {
-  const int64_t rows = (int64_t)C + 2 * W;
-  const int64_t band_blocks = (rows * 32 + kThreads - 1) / kThreads;
-  band_pass<<<(unsigned)(band_blocks + 1), kThreads, 0, stream>>>(
-      vec, coef, C, W, D, scale, band_blocks, loss_part, count_part,
-      nparts, out, loss_out, count_out);
-  return cudaGetLastError();
-}
-
 // The loss and pair partial sums of every block, summed in block order
 // by one warp: a launch of its own after a span kernel.
 __global__ void reduce_parts_kernel(const float* __restrict__ loss_part,
@@ -156,11 +111,11 @@ inline cudaError_t launch_reduce_parts(const float* loss_part,
 // ---- the span kernels (K4, K6) ----
 
 // A span block's loss and pair count: each thread's partial sums summed
-// over the warp, then the warps in order, into the block's slot of the
-// parts (swl: 2 floats a warp); the same order on every run.
+// over the warp, then the warps in order, into slot `slot` of the parts
+// (the span's; swl: 2 floats a warp); the same order on every run.
 __device__ __forceinline__ void block_sums(float wloss, float wpairs,
                                            float* swl, float* loss_part,
-                                           float* pairs_part) {
+                                           float* pairs_part, int slot) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   wloss = warp_sum(wloss);
   wpairs = warp_sum(wpairs);
@@ -175,8 +130,8 @@ __device__ __forceinline__ void block_sums(float wloss, float wpairs,
       l += swl[2 * w];
       p += swl[2 * w + 1];
     }
-    loss_part[blockIdx.x] = l;
-    pairs_part[blockIdx.x] = p;
+    loss_part[slot] = l;
+    pairs_part[slot] = p;
   }
 }
 
@@ -375,6 +330,320 @@ __device__ __forceinline__ float transpose_sum32(float (&v)[32], int lane) {
   halve<4>(v, lane);
   halve<2>(v, lane);
   return v[0];
+}
+
+// ---- a lane's columns (K5, K7, K8) ----
+
+// The float4 or float columns a lane owns, in global or shared memory
+// (plain loads: K8's in-place form writes its rows in the same launch).
+__device__ __forceinline__ float4 load_col(const float* row, int u, float4) {
+  return reinterpret_cast<const float4*>(row)[u];
+}
+__device__ __forceinline__ float load_col(const float* row, int u, float) {
+  return row[u];
+}
+__device__ __forceinline__ float dot_col(float4 a, float4 b, float acc) {
+  return dot4(a, b, acc);
+}
+__device__ __forceinline__ float dot_col(float a, float b, float acc) {
+  return fmaf(a, b, acc);
+}
+__device__ __forceinline__ float4 axpy_col(float g, float4 x, float4 acc) {
+  return axpy4(g, x, acc);
+}
+__device__ __forceinline__ float axpy_col(float g, float x, float acc) {
+  return fmaf(g, x, acc);
+}
+__device__ __forceinline__ float4 scale_col(float s, float4 x) {
+  return make_float4(__fmul_rn(s, x.x), __fmul_rn(s, x.y), __fmul_rn(s, x.z),
+                     __fmul_rn(s, x.w));
+}
+__device__ __forceinline__ float scale_col(float s, float x) {
+  return __fmul_rn(s, x);
+}
+__device__ __forceinline__ float4 add_col(float4 a, float4 b) {
+  return make_float4(__fadd_rn(a.x, b.x), __fadd_rn(a.y, b.y),
+                     __fadd_rn(a.z, b.z), __fadd_rn(a.w, b.w));
+}
+__device__ __forceinline__ float add_col(float a, float b) {
+  return __fadd_rn(a, b);
+}
+__device__ __forceinline__ void store_col(float* row, int u, float4 x) {
+  reinterpret_cast<float4*>(row)[u] = x;
+}
+__device__ __forceinline__ void store_col(float* row, int u, float x) {
+  row[u] = x;
+}
+template <typename T>
+__device__ __forceinline__ T zero_col();
+template <>
+__device__ __forceinline__ float4 zero_col<float4>() {
+  return zero4();
+}
+template <>
+__device__ __forceinline__ float zero_col<float>() {
+  return 0.0f;
+}
+
+// One halving step: lanes H apart swap halves of their first 2H sums.
+template <int N, int H>
+__device__ __forceinline__ void halve_n(float (&v)[N], int lane) {
+  const bool upper = (lane & H) != 0;
+#pragma unroll
+  for (int i = 0; i < H; ++i) {
+    const float send = upper ? v[i] : v[i + H];
+    const float keep = upper ? v[i + H] : v[i];
+    v[i] = keep + __shfl_xor_sync(0xffffffffu, send, H);
+  }
+}
+
+// N per-lane partial sums over the warp: lane l ends with the total of
+// v[l % N] (log2 N halvings, then a sum over the lane groups).
+template <int N>
+__device__ __forceinline__ float transpose_sum(float (&v)[N], int lane) {
+  if constexpr (N >= 32) halve_n<N, 16>(v, lane);
+  if constexpr (N >= 16) halve_n<N, 8>(v, lane);
+  halve_n<N, 4>(v, lane);
+  halve_n<N, 2>(v, lane);
+  halve_n<N, 1>(v, lane);
+  float x = v[0];
+  for (int o = N; o < 32; o <<= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+__device__ __forceinline__ float4 div_col(float4 x, float d) {
+  return make_float4(__fdiv_rn(x.x, d), __fdiv_rn(x.y, d), __fdiv_rn(x.z, d),
+                     __fdiv_rn(x.w, d));
+}
+__device__ __forceinline__ float div_col(float x, float d) {
+  return __fdiv_rn(x, d);
+}
+// A read-only global row's column (through the non-coherent cache).
+__device__ __forceinline__ float4 ldg_col(const float* row, int u, float4) {
+  return __ldg(reinterpret_cast<const float4*>(row) + u);
+}
+__device__ __forceinline__ float ldg_col(const float* row, int u, float) {
+  return __ldg(row + u);
+}
+// A streaming store: a gradient row is written once and not read back.
+__device__ __forceinline__ void stcs_col(float* row, int u, float4 x) {
+  __stcs(reinterpret_cast<float4*>(row) + u, x);
+}
+__device__ __forceinline__ void stcs_col(float* row, int u, float x) {
+  __stcs(row + u, x);
+}
+
+// ---- the CBOW spans (K5, K7) ----
+//
+// A span block owns S consecutive centers [c0, c0 + S) and the band
+// positions [c0, c0 + S) (the last span: up to C + 2W). Band position p
+// takes the window gradient of the centers c = p - W - off_j: for
+// position q = p - c0 of the span, the span-local center q - j (j < W)
+// or q - j - 1 (j >= W), in [q - 2W, q]. The span's own centers give
+// every position q >= 2W; the first 2W positions also need the 2W
+// centers before c0, the last 2W of the span before. Those come by a
+// handoff, not by recomputing them: the spans take their order from an
+// atomic ticket at start (so span i - 1 has started whenever span i
+// runs, and it publishes before it waits for anything: no block waits
+// on one that is not running); a span publishes its last 2W centers'
+// window gradients to a global scratch, then a flag (a release store),
+// and finishes its other positions before it acquires the flag of the
+// span before. Each position's sum keeps its fixed offset order, so the
+// result is the same bits on every run. The consumer clears the flag it
+// read and the last block to finish clears the ticket, so both are zero
+// again for the next launch (one stream at a time: the port launches
+// every kernel of a device on one stream).
+
+struct Handoff {
+  unsigned* ctr;    // [2]: the ticket, the blocks done; zero at launch
+  unsigned* flags;  // [spans]: span i's halo published; zero at launch
+  float* halo;      // [spans][2W][D] the last 2W centers' gradients
+};
+
+__device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n"
+               : "=r"(v)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_release(unsigned* p, unsigned v) {
+  asm volatile("st.release.gpu.global.u32 [%0], %1;\n" ::"l"(p), "r"(v)
+               : "memory");
+}
+
+// This block's span (the order in which the blocks started).
+__device__ __forceinline__ int span_ticket(const Handoff& h, int* s_span) {
+  if (threadIdx.x == 0) *s_span = (int)atomicAdd(h.ctr, 1u);
+  __syncthreads();
+  return *s_span;
+}
+
+// The last block to finish clears the ticket for the next launch (every
+// block took its ticket before it counts itself done; nothing is
+// published, so no fence).
+__device__ __forceinline__ void span_done(const Handoff& h) {
+  if (threadIdx.x == 0) {
+    if (atomicAdd(h.ctr + 1, 1u) == gridDim.x - 1) {
+      h.ctr[0] = 0u;
+      h.ctr[1] = 0u;
+    }
+  }
+}
+
+// The CBOW span's shared memory (floats): the band rows of its
+// positions' windows, its centers' window means, the window gradients
+// of the 2W halo centers then of its own S centers, the pair mask of
+// the same 2W + S centers, its centers' valid-context counts and two
+// slots a warp for the sums; each region 16-byte aligned.
+// kernels/cbow.py `span_smem` and kernels/hs.py `cbow_span_smem` mirror
+// it (K5 adds its negatives' rows and coefficients after `floats`).
+struct CbowSpan {
+  int DP;  // shared row stride: D rounded up to 4
+  size_t band, mean, gacc, pm, cnt, wl, floats;
+};
+
+__host__ __device__ inline size_t align4(size_t x) { return (x + 3) / 4 * 4; }
+
+__host__ __device__ inline CbowSpan cbow_span(int S, int W, int D,
+                                              int warps) {
+  CbowSpan s;
+  const int W2 = 2 * W;
+  s.DP = (D + 3) / 4 * 4;
+  s.band = 0;
+  s.mean = s.band + (size_t)(S + W2) * s.DP;
+  s.gacc = s.mean + (size_t)S * s.DP;
+  s.pm = s.gacc + (size_t)(W2 + S) * s.DP;
+  s.cnt = align4(s.pm + (size_t)(W2 + S) * W2);
+  s.wl = align4(s.cnt + S);
+  s.floats = align4(s.wl + 2 * warps);
+  return s;
+}
+
+// Stage the span's band rows [c0, c0 + own_c + 2W) into sband and the
+// pair mask of the centers [c0 - 2W, c0 + S) into spm (zeros outside
+// [0, C)); asynchronous copies, not yet committed.
+template <bool VEC>
+__device__ __forceinline__ void stage_cbow(float* sband, float* spm,
+                                           const float* u_band,
+                                           const float* pmask, int64_t c0,
+                                           int own_c, int S, int C, int W,
+                                           int D, int DP) {
+  const int W2 = 2 * W;
+  stage_rows<VEC>(sband, S + W2, D, DP, u_band, [&](int r) -> const float* {
+    return r < own_c + W2 ? u_band + (c0 + r) * D : nullptr;
+  });
+  const int64_t base = (c0 - W2) * W2;
+  for (int i = threadIdx.x; i < (W2 + S) * W2; i += blockDim.x) {
+    const int64_t c = c0 - W2 + i / W2;
+    const bool in = c >= 0 && c < C;
+    copy_async<false>(spm + i, in ? pmask + base + i : pmask, in);
+  }
+}
+
+// Column u of the window mean of span center cs: the masked sum of its
+// band rows in offset order (the reference's), over max(n_c, 1).
+template <typename T>
+__device__ __forceinline__ T window_mean_col(const float* sband,
+                                             const float* pmr, int cs, int u,
+                                             int W, int DP, float den) {
+  T acc = zero_col<T>();
+  for (int j = 0; j < 2 * W; ++j) {
+    const int k = j < W ? j : j + 1;
+    acc = axpy_col(pmr[j], load_col(sband + (size_t)(cs + k) * DP, u, T()),
+                   acc);
+  }
+  return div_col(acc, den);
+}
+
+// The d_band rows of the span positions [q_lo, q_hi): scale times the
+// sum over j, in order, of pmask[c, j] * gacc[c] for the centers c
+// whose window holds the position (span-local c in [c_min, own_c);
+// sgacc row 2W + c, spm row 2W + c).
+template <typename T>
+__device__ __forceinline__ void band_rows(const float* sgacc,
+                                          const float* spm, int q_lo,
+                                          int q_hi, int c_min, int own_c,
+                                          int W, int D, int DP, float scale,
+                                          float* d_band, int64_t c0) {
+  const int W2 = 2 * W;
+  constexpr int kPer = sizeof(T) / sizeof(float);
+  const int NU = (D + kPer - 1) / kPer;
+  const int n = (q_hi - q_lo) * NU;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    const int q = q_lo + i / NU, u = i - (i / NU) * NU;
+    T acc = zero_col<T>();
+    for (int j = 0; j < W2; ++j) {
+      const int c = j < W ? q - j : q - j - 1;
+      if (c >= c_min && c < own_c)
+        acc = axpy_col(spm[(W2 + c) * W2 + j],
+                       load_col(sgacc + (size_t)(W2 + c) * DP, u, T()), acc);
+    }
+    store_col(d_band + (c0 + q) * D, u, scale_col(scale, acc));
+  }
+}
+
+// Once the span's window gradients are complete in sgacc (a barrier
+// before): its last 2W, the halo of the span after, go to the scratch,
+// then the flag. The barrier orders every thread's stores before thread
+// 0's release store (no fence needed; the last span publishes nothing).
+template <typename T>
+__device__ __forceinline__ void cbow_publish(const Handoff& h,
+                                             const float* sgacc, int span,
+                                             int own_c, int W, int D,
+                                             int DP) {
+  if (span + 1 >= (int)gridDim.x) return;
+  const int W2 = 2 * W;
+  constexpr int kPer = sizeof(T) / sizeof(float);
+  const int NU = (D + kPer - 1) / kPer;
+  float* dst = h.halo + (size_t)span * W2 * D;
+  for (int i = threadIdx.x; i < W2 * NU; i += blockDim.x) {
+    const int r = i / NU, u = i - (i / NU) * NU;
+    store_col(dst + (size_t)r * D, u,
+              load_col(sgacc + (size_t)(own_c + r) * DP, u, T()));
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) st_release(h.flags + span, 1u);
+}
+
+// The span's d_band rows: the positions [2W, own_pos) from its own
+// centers, then, once the span before has published (its flag
+// acquired), the halo into sgacc rows [0, 2W) and the positions [0, 2W).
+template <typename T>
+__device__ __forceinline__ void cbow_band(const Handoff& h, float* sgacc,
+                                          const float* spm, int span,
+                                          int own_c, int own_pos, int W,
+                                          int D, int DP, float scale,
+                                          float* d_band, int64_t c0) {
+  const int W2 = 2 * W;
+  constexpr int kPer = sizeof(T) / sizeof(float);
+  const int NU = (D + kPer - 1) / kPer;
+  band_rows<T>(sgacc, spm, W2 < own_pos ? W2 : own_pos, own_pos, 0, own_c,
+               W, D, DP, scale, d_band, c0);
+  if (span > 0) {
+    if (threadIdx.x == 0) {
+      while (ld_acquire(h.flags + span - 1) == 0u) {
+      }
+      h.flags[span - 1] = 0u;
+    }
+    __syncthreads();
+    const float* src = h.halo + (size_t)(span - 1) * W2 * D;
+    for (int i = threadIdx.x; i < W2 * NU; i += blockDim.x) {
+      const int r = i / NU, u = i - (i / NU) * NU;
+      T x;
+      if constexpr (sizeof(T) == 16) {
+        x = __ldcg(reinterpret_cast<const float4*>(src + (size_t)r * D) + u);
+      } else {
+        x = __ldcg(src + (size_t)r * D + u);
+      }
+      store_col(sgacc + (size_t)r * DP, u, x);
+    }
+    __syncthreads();
+  }
+  band_rows<T>(sgacc, spm, 0, W2 < own_pos ? W2 : own_pos,
+               span > 0 ? -W2 : 0, own_c, W, D, DP, scale, d_band, c0);
 }
 
 // Opt a kernel in to more than 48 KB of dynamic shared memory.

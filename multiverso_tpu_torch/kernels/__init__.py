@@ -46,6 +46,12 @@ mesh_allreduce     ``mesh.py``               ``psum``/``pmean`` of
 A wrapper given a CUDA tensor launches its kernel (built at first use
 by ``build.py``) or raises; given a CPU tensor it runs the plain
 version. Each wrapper counts its launches in ``<wrapper>.launches``.
+The word2vec step kernels (K4-K7) are span kernels: a block owns a run
+of centers and writes every gradient row it owns once, then a one-warp
+launch sums the blocks' loss partials in order; K5 and K7 (CBOW) take
+the 2W window gradients of a span's edge from the span before
+(``_launch.handoff``). The plain versions flush float32 subnormals as
+the reference does (``flush.py``; the kernels through ``-ftz=true``).
 """
 
 from __future__ import annotations

@@ -20,6 +20,41 @@ def multiprocessors(device: torch.device) -> int:
     return _multiprocessors[index]
 
 
+_handoff = {}
+
+
+def handoff(device: torch.device, spans: int):
+    """(counters [2], flags [>= spans]) int32 of the CBOW span kernels'
+    handoff on ``device`` (K5, K7; ``csrc/w2v_common.cuh`` ``Handoff``):
+    zeroed once, and every launch leaves them zero again."""
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    ctr, flags = _handoff.get(device, (None, None))
+    if ctr is None or flags.numel() < spans:
+        ctr = torch.zeros(2, dtype=torch.int32, device=device)
+        flags = torch.zeros(max(spans, 4096), dtype=torch.int32,
+                            device=device)
+        _handoff[device] = (ctr, flags)
+    return ctr, flags
+
+
+def align4(x: int) -> int:
+    """``csrc/w2v_common.cuh`` ``align4``: floats up to a 16-byte
+    boundary."""
+    return -(-x // 4) * 4
+
+
+def cbow_span_floats(S: int, W: int, D: int, warps: int = 8) -> int:
+    """Floats of ``cbow_span`` (``csrc/w2v_common.cuh``), the shared
+    memory K5 and K7 share: the band rows of S + 2W positions, S window
+    means, the window gradients of 2W + S centers and their pair mask,
+    S context counts and two slots a warp."""
+    W2, DP = 2 * W, align4(D)
+    pm = (S + W2) * DP + S * DP + (W2 + S) * DP
+    cnt = align4(pm + (W2 + S) * W2)
+    return align4(align4(cnt + S) + 2 * warps)
+
+
 def round_up(x: int, m: int) -> int:
     """The least multiple of ``m`` at or above ``x``."""
     return -(-x // m) * m

@@ -65,12 +65,12 @@ SIGNATURES = {
     "mv_subsample_compact": [_P, _P, _P, _P, _I64, _P, _P, _P, _P, _P, _P],
     "mv_banded_sgns_grad": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
                             _P, _P, _P, _P, _P, _P, _P],
-    "mv_banded_cbow_grad": [_P, _P, _P, _I, _I, _I, _I, _I, _F,
-                            _P, _P, _P, _P, _P, _P, _P, _P],
+    "mv_banded_cbow_grad": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
+                            _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
     "mv_banded_hs_sg_grad": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                              _F, _P, _P, _P, _P, _P, _P, _P],
-    "mv_hs_cbow_grad": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
-                        _P, _P, _P, _P, _P, _P, _P, _P],
+    "mv_hs_cbow_grad": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
+                        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
     "mv_pair_offset_grad": [_P, _P, _P, _P, _I, _I, _I, _F, _I, _P, _P, _P,
                             _P, _P, _P, _P, _P],
     "mv_pairlist_ns_grad": [_P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I,
@@ -175,7 +175,10 @@ def library(verbose: bool = False) -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             lib.mv_banded_sgns_smem.argtypes = [_I] * 6
             lib.mv_hs_span_smem.argtypes = [_I] * 5
-            for name in ("mv_banded_sgns_smem", "mv_hs_span_smem"):
+            lib.mv_banded_cbow_smem.argtypes = [_I] * 5
+            lib.mv_hs_cbow_smem.argtypes = [_I] * 3
+            for name in ("mv_banded_sgns_smem", "mv_hs_span_smem",
+                         "mv_banded_cbow_smem", "mv_hs_cbow_smem"):
                 getattr(lib, name).restype = ctypes.c_size_t
             lib.mv_error_string.argtypes = [_I]
             lib.mv_error_string.restype = ctypes.c_char_p

@@ -50,6 +50,27 @@ def add_(data: torch.Tensor, delta: torch.Tensor,
     return flush_(data)
 
 
+def fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """``a * b + c`` in float32 rounded once, as a fused multiply-add
+    (the card's ``__fmaf_rn``; the reference's XLA where it contracts the
+    product into the add): the operands and the result flushed, the
+    product neither rounded nor flushed. The product of two float32s is
+    exact in float64; the float64 sum's rounding error (TwoSum) decides a
+    round to odd, after which the one rounding to float32 is correct
+    (53 >= 24 + 2 bits). Plain float64 then float32 would round twice."""
+    a, b, c = flush(a), flush(b), flush(c)
+    p = a.double() * b.double()
+    cd = c.double()
+    s = p + cd
+    bv = s - p
+    err = (p - (s - bv)) + (cd - bv)
+    even = (s.view(torch.int64) & 1) == 0
+    toward = torch.where(err > 0, torch.full_like(s, float("inf")),
+                         torch.full_like(s, float("-inf")))
+    s = torch.where((err != 0) & even, torch.nextafter(s, toward), s)
+    return flush(s.float())
+
+
 def _inexact(x: torch.Tensor) -> torch.Tensor:
     """Where a float32 is nonzero and below 2^-103 in magnitude: a sum
     of such values can be subnormal; a sum of the others cannot."""

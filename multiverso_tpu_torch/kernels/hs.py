@@ -24,7 +24,15 @@ its positions node by node through shared memory, and recomputes the
 2W-center halo that its edge positions share with the block before, so
 each path row crosses HBM about (S + 2W) / S times and nothing is summed
 across blocks. ``span_geometry`` picks S and the block's warps,
-``span_smem`` is the block's shared memory (``mv_hs_span_smem``).
+``span_smem`` is the block's shared memory (``mv_hs_span_smem``). K7
+is one span kernel too (then the same one-warp sum): a block owns S
+centers (``cbow_span_geometry``), stages their windows' band rows once,
+and a warp takes a center, reading its own path rows straight from HBM
+in chunks of 8 nodes (a masked node's row is not read); the window
+gradients stay in shared memory, and the 2W that a span's first band
+positions need come from the span before by a handoff
+(``_launch.handoff``), so each path row crosses HBM once
+(``cbow_span_smem``, ``mv_hs_cbow_smem``).
 """
 
 from __future__ import annotations
@@ -32,11 +40,12 @@ from __future__ import annotations
 import torch
 
 from . import build
-from ._launch import (SMEM_LIMIT, is_plain, multiprocessors,
-                      require, round_up, stream_of)
+from ._launch import (SMEM_LIMIT, cbow_span_floats, handoff, is_plain,
+                      multiprocessors, require, round_up, stream_of)
 from .cbow import window_mean
-from .objective import (MAX_EXP, band_sum, clip_grad, offsets, xent,
-                        xent_grad)
+from .flush import flush as f
+from .objective import (MAX_EXP, band_sum, dot, masked_grad, offsets,
+                        sum_terms, xent)
 
 
 #: Warps of K6 an SM holds at once: its 168 registers a thread at most
@@ -97,6 +106,26 @@ def span_geometry(C: int, W: int, D: int, L: int, sms: int):
     return 8 * nt - 2 * W, min(nt, 8)
 
 
+def cbow_span_smem(S: int, W: int, D: int) -> int:
+    """Bytes of shared memory of one K7 block: the CBOW span's
+    (``cbow_span`` of ``csrc/w2v_common.cuh``, ``mv_hs_cbow_smem``)."""
+    return 4 * cbow_span_floats(S, W, D)
+
+
+def cbow_span_geometry(C: int, W: int, D: int, sms: int) -> int:
+    """S centers a K7 span: 64 where that still gives two blocks an SM
+    (``sms`` of them), else 32; at least 2W (the handoff takes the 2W
+    centers before a span from the one span before) unless one span
+    holds all C."""
+    S = 64 if -(-C // 64) >= 2 * sms else 32
+    S = min(max(S, 2 * W), C)
+    if cbow_span_smem(S, W, D) > SMEM_LIMIT:
+        raise ValueError(f"K7: a span of {S} centers (window {W}) of rows "
+                         f"of {D} floats needs more than {SMEM_LIMIT} "
+                         f"bytes of shared memory")
+    return S
+
+
 def _node_labels(path: torch.Tensor, code: torch.Tensor):
     """(node_ok, labels) as floats: a node counts where both its path id
     and its code are >= 0; its label is ``1 - code``."""
@@ -108,28 +137,29 @@ def banded_hs_sg_grad_plain(v: torch.Tensor, u_bp: torch.Tensor,
                             path_band: torch.Tensor,
                             code_band: torch.Tensor, pmask: torch.Tensor,
                             W: int, scale: float):
-    """Plain version of K6: (d_v, d_bp, loss, pairs)."""
+    """Plain version of K6: (d_v, d_bp, loss, pairs), every operation
+    flushed (``objective``'s note)."""
     C, D = v.shape
     L = path_band.shape[1]
+    v, u_bp = f(v), f(u_bp)
     u3 = u_bp.reshape(C + 2 * W, L, D)
     node_ok, labels_band = _node_labels(path_band, code_band)
     loss = torch.zeros((), dtype=v.dtype, device=v.device)
-    g_v = torch.zeros_like(v)
-    coef = torch.empty((C, 2 * W, L), dtype=v.dtype, device=v.device)
+    g_v, g_bp = [], []
     for j, off in enumerate(offsets(W)):
         u_off = u3[W + off:W + off + C]
         mask = node_ok[W + off:W + off + C] * pmask[:, j:j + 1]
         labels = labels_band[W + off:W + off + C] * mask
-        raw = torch.einsum("cd,cld->cl", v, u_off)
+        raw = dot(v[:, None], u_off, -1)
         logits = torch.clamp(raw, -MAX_EXP, MAX_EXP)
-        loss = loss + (xent(logits, labels) * mask).sum()
-        g = xent_grad(logits, labels) * clip_grad(raw) * mask
-        g_v = g_v + torch.einsum("cl,cld->cd", g, u_off)
-        coef[:, j] = g
-    g_bp = torch.zeros_like(u3)
-    for j, off in enumerate(offsets(W)):
-        g_bp[W + off:W + off + C] += coef[:, j, :, None] * v[:, None, :]
-    return g_v * scale, g_bp.reshape(-1, D) * scale, loss, pmask.sum()
+        loss = f(loss + f(f(xent(logits, labels) * mask).sum()))
+        g = masked_grad(logits, raw, labels, mask)
+        g_v.append(dot(g[..., None], u_off, 1))
+        pad = torch.zeros_like(u3)
+        pad[W + off:W + off + C] = f(g[:, :, None] * v[:, None, :])
+        g_bp.append(pad)
+    return (f(sum_terms(g_v) * scale),
+            f(sum_terms(g_bp).reshape(-1, D) * scale), loss, pmask.sum())
 
 
 def banded_hs_sg_grad(v: torch.Tensor, u_bp: torch.Tensor,
@@ -183,22 +213,24 @@ banded_hs_sg_grad.launches = 0
 def hs_cbow_grad_plain(u_band: torch.Tensor, u_path: torch.Tensor,
                        path: torch.Tensor, code: torch.Tensor,
                        pmask: torch.Tensor, W: int, scale: float):
-    """Plain version of K7: (d_band, d_path, loss, examples)."""
+    """Plain version of K7: (d_band, d_path, loss, examples), every
+    operation flushed (``objective``'s note)."""
     C, L = path.shape
     D = u_band.shape[1]
+    u_band, u_path = f(u_band), f(u_path)
     up = u_path.reshape(C, L, D)
     vmean, has_ctx, denom = window_mean(u_band, pmask, W)
     node_ok, labels = _node_labels(path, code)
     mask = node_ok * has_ctx[:, None]
     labels = labels * mask
-    raw = torch.einsum("cd,cld->cl", vmean, up)
+    raw = dot(vmean[:, None], up, -1)
     logits = torch.clamp(raw, -MAX_EXP, MAX_EXP)
-    loss = (xent(logits, labels) * mask).sum()
-    g = xent_grad(logits, labels) * clip_grad(raw) * mask
-    g_path = g[:, :, None] * vmean[:, None, :]
-    g_acc = torch.einsum("cl,cld->cd", g, up) / denom[:, None]
+    loss = f(f(xent(logits, labels) * mask).sum())
+    g = masked_grad(logits, raw, labels, mask)
+    g_path = f(g[:, :, None] * vmean[:, None, :])
+    g_acc = f(dot(g[..., None], up, 1) / denom[:, None])
     g_band = band_sum(pmask, g_acc, W)
-    return (g_band * scale, g_path.reshape(C * L, D) * scale, loss,
+    return (f(g_band * scale), f(g_path.reshape(C * L, D) * scale), loss,
             has_ctx.sum())
 
 
@@ -232,19 +264,25 @@ def hs_cbow_grad(u_band: torch.Tensor, u_path: torch.Tensor,
     require(path, "path", torch.int32, dev, 2)
     require(code, "code", torch.int32, dev, 2)
     require(pmask, "pmask", torch.float32, dev, 2)
+    S = cbow_span_geometry(C, W, D, multiprocessors(dev))
+    blocks = -(-C // S)
     d_band = torch.empty_like(u_band)
     d_path = torch.empty_like(u_path)
-    gacc = torch.empty((C, D), dtype=torch.float32, device=dev)
-    parts = torch.empty(2 * C + 2, dtype=torch.float32, device=dev)
+    parts = torch.empty(2 * blocks + 2, dtype=torch.float32, device=dev)
+    halo = torch.empty(max(blocks - 1, 1) * 2 * W * D, dtype=torch.float32,
+                       device=dev)
+    ctr, flags = handoff(dev, blocks)
     lib = build.library()
     build.check(lib.mv_hs_cbow_grad(
         u_band.data_ptr(), u_path.data_ptr(), path.data_ptr(),
-        code.data_ptr(), pmask.data_ptr(), C, W, L, D, float(scale),
-        d_band.data_ptr(), d_path.data_ptr(), gacc.data_ptr(),
-        parts.data_ptr(), parts[C:].data_ptr(), parts[2 * C:].data_ptr(),
-        parts[2 * C + 1:].data_ptr(), stream_of(u_band)), "hs_cbow_grad")
+        code.data_ptr(), pmask.data_ptr(), C, W, L, D, S, float(scale),
+        d_band.data_ptr(), d_path.data_ptr(), parts.data_ptr(),
+        parts[blocks:].data_ptr(), ctr.data_ptr(), flags.data_ptr(),
+        halo.data_ptr(), parts[2 * blocks:].data_ptr(),
+        parts[2 * blocks + 1:].data_ptr(), stream_of(u_band)),
+        "hs_cbow_grad")
     hs_cbow_grad.launches += 1
-    return d_band, d_path, parts[2 * C], parts[2 * C + 1]
+    return d_band, d_path, parts[2 * blocks], parts[2 * blocks + 1]
 
 
 hs_cbow_grad.launches = 0

@@ -27,7 +27,10 @@ Together they replace ``make_sparse_step``
 On a CUDA tensor each wrapper launches its kernel
 (``csrc/sparse_logreg.cu``; both bound by bytes) or raises; on a CPU
 tensor it runs the plain version beside it, whose elementwise numerics
-are also the dense model's (``models/logreg/objective.py``).
+are also the dense model's (``models/logreg/objective.py``). The plain
+versions flush float32 subnormals on every operation's inputs and
+result, as the reference and the kernels (``-ftz=true``) do (ROADMAP
+C12).
 ``sparse_lr_forward.launches`` and ``sparse_lr_apply.launches`` count
 kernel launches.
 """
@@ -41,7 +44,10 @@ import torch
 
 from . import build
 from ._launch import is_plain, require, stream_of
+from .flush import add_rows
+from .flush import flush as f
 from .keysort import key_sort
+from .objective import dot
 from .rows import scatter_levels
 
 ACT_LINEAR, ACT_SIGMOID, ACT_SOFTMAX = 0, 1, 2
@@ -76,9 +82,9 @@ def onehot(labels: torch.Tensor, classes: int) -> torch.Tensor:
 
 def activation(logits: torch.Tensor, act: int) -> torch.Tensor:
     if act == ACT_SIGMOID:
-        return torch.sigmoid(logits)
+        return f(torch.sigmoid(logits))
     if act == ACT_SOFTMAX:
-        return torch.softmax(logits, dim=-1)
+        return f(torch.softmax(logits, dim=-1))
     return logits
 
 
@@ -87,13 +93,13 @@ def sample_loss(pred: torch.Tensor, y: torch.Tensor, act: int
     """Per-sample loss: clipped-log loss for sigmoid and softmax, the
     mean squared error over classes for the linear prediction."""
     if act == ACT_SIGMOID:
-        return -torch.sum(y * torch.log(torch.clamp(pred, min=LOG_CLIP))
-                          + (1 - y) * torch.log(
-                              torch.clamp(1 - pred, min=LOG_CLIP)), dim=-1)
+        return -f(torch.sum(f(f(y * f(torch.log(torch.clamp(
+            pred, min=LOG_CLIP)))) + f(f(1 - y) * f(torch.log(torch.clamp(
+                f(1 - pred), min=LOG_CLIP))))), dim=-1))
     if act == ACT_SOFTMAX:
-        return -torch.sum(y * torch.log(torch.clamp(pred, min=LOG_CLIP)),
-                          dim=-1)
-    return torch.mean((pred - y) ** 2, dim=-1)
+        return -f(torch.sum(f(y * f(torch.log(torch.clamp(
+            pred, min=LOG_CLIP)))), dim=-1))
+    return f(torch.mean(f(f(pred - y) ** 2), dim=-1))
 
 
 def sample_hits(pred: torch.Tensor, labels: torch.Tensor,
@@ -109,9 +115,9 @@ def sample_hits(pred: torch.Tensor, labels: torch.Tensor,
 
 def regular_grad(w: torch.Tensor, reg: int, coef: float) -> torch.Tensor:
     if reg == REG_L1:
-        return coef * torch.sign(w)
+        return f(coef * torch.sign(f(w)))
     if reg == REG_L2:
-        return coef * w
+        return f(coef * f(w))
     return torch.zeros_like(w)
 
 
@@ -124,12 +130,14 @@ def _scalar(x: float, like: torch.Tensor) -> torch.Tensor:
 
 def ftrl_weights(z: torch.Tensor, n: torch.Tensor, ftrl: Ftrl
                  ) -> torch.Tensor:
-    """FTRL's ``weights_of`` (model.py:211-213)."""
-    shrunk = torch.sign(z) * torch.clamp(torch.abs(z) - ftrl.lambda1,
-                                         min=0.0)
-    den = (ftrl.beta + torch.sqrt(n)) / _scalar(ftrl.alpha, z) \
-        + ftrl.lambda2
-    return -shrunk / den
+    """FTRL's ``weights_of`` (model.py:211-213), every operation
+    flushed."""
+    z, n = f(z), f(n)
+    shrunk = f(torch.sign(z) * torch.clamp(f(torch.abs(z) - ftrl.lambda1),
+                                           min=0.0))
+    den = f(f(f(ftrl.beta + f(torch.sqrt(n))) / _scalar(ftrl.alpha, z))
+            + ftrl.lambda2)
+    return f(-shrunk / den)
 
 
 def gather_ids(keys: torch.Tensor, rows: int) -> torch.Tensor:
@@ -147,18 +155,20 @@ def sparse_lr_forward_plain(table: Table, keys: torch.Tensor,
                             weights: Optional[torch.Tensor], act: int,
                             ftrl: Optional[Ftrl] = None):
     """Plain version of K11: ``pred`` without labels, else ``(pred,
-    diff, loss * weight, hit)``."""
+    diff, loss * weight, hit)``; every operation flushed, as the
+    reference's (ROADMAP C12)."""
     ids = gather_ids(keys, (table if ftrl is None else table[0]).shape[0])
     if ftrl is None:
-        rows = table[ids]
+        rows = f(table[ids])
     else:
         rows = ftrl_weights(table[0][ids], table[1][ids], ftrl)
-    pred = activation(torch.einsum("bk,bkc->bc", values, rows), act)
+    pred = activation(dot(f(values)[..., None], rows, 1), act)
     if labels is None:
         return pred
     y = onehot(labels, pred.shape[1])
-    diff = (pred - y) * weights[:, None]
-    return (pred, diff, sample_loss(pred, y, act) * weights,
+    weights = f(weights)
+    diff = f(f(pred - y) * weights[:, None])
+    return (pred, diff, f(sample_loss(pred, y, act) * weights),
             sample_hits(pred, labels, weights))
 
 
@@ -271,33 +281,40 @@ def sparse_lr_apply_plain(table: Table, touched: Touched,
                           push: Optional[Tuple[torch.Tensor, torch.Tensor]]
                           ) -> Optional[torch.Tensor]:
     """Plain version of K12 on the prepared ``touched`` rows, in place;
-    returns the delta rows when ``delta_rows``."""
+    returns the delta rows when ``delta_rows``. Every operation flushed,
+    as the reference's (ROADMAP C12): a row's terms add in position
+    order, each add flushed (``flush.add_rows``)."""
     K = values.shape[1]
     pos = touched.occ.to(torch.int64)
     seg = torch.repeat_interleave(
         torch.arange(touched.rows.numel(), device=pos.device),
         touched.counts)
-    terms = values.reshape(-1)[pos][:, None] * diff[pos // K] / count
-    gsum = torch.zeros((touched.rows.numel(), diff.shape[1]),
-                       dtype=torch.float32, device=diff.device)
-    gsum.index_add_(0, seg, terms)
+    terms = f(f(f(values.reshape(-1)[pos][:, None]) * f(diff[pos // K]))
+              / count)
+    # A row's terms add in position order from -0 (the identity: a sum
+    # of zeros is -0 only where every term is, as in the reference, whose
+    # XLA folds ``zeros.at[keys].add(u) + reg(w)`` into a scatter-add
+    # into ``reg(w)``), then the regularization, as the kernel adds them.
+    gsum = torch.full((touched.rows.numel(), diff.shape[1]), -0.0,
+                      dtype=torch.float32, device=diff.device)
+    add_rows(gsum, seg, terms)
     rows = touched.rows
     if ftrl is None:
-        w_old = table[rows]
-        g = gsum + regular_grad(w_old, reg, coef)
-        d = g * scale
-        table.index_copy_(0, rows, w_old - d)
+        w_old = f(table[rows])
+        g = f(gsum + regular_grad(w_old, reg, coef))
+        d = f(g * scale)
+        table.index_copy_(0, rows, f(w_old - d))
         return d if delta_rows else None
     z, n = table
-    z_old, n_old = z[rows], n[rows]
+    z_old, n_old = f(z[rows]), f(n[rows])
     w_old = ftrl_weights(z_old, n_old, ftrl)
-    g = gsum + regular_grad(w_old, reg, coef)
-    g2 = g * g
-    sigma = (torch.sqrt(n_old + g2) - torch.sqrt(n_old)) \
-        / _scalar(ftrl.alpha, g)
-    step = g - sigma * w_old
-    z.index_copy_(0, rows, z_old + step)
-    n.index_copy_(0, rows, n_old + g2)
+    g = f(gsum + regular_grad(w_old, reg, coef))
+    g2 = f(g * g)
+    sigma = f(f(f(torch.sqrt(f(n_old + g2))) - f(torch.sqrt(n_old)))
+              / _scalar(ftrl.alpha, g))
+    step = f(g - f(sigma * w_old))
+    z.index_copy_(0, rows, f(z_old + step))
+    n.index_copy_(0, rows, f(n_old + g2))
     if push is not None:
         push[0].index_copy_(0, rows, step)
         push[1].index_copy_(0, rows, g2)

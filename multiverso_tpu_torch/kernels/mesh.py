@@ -26,6 +26,7 @@ import torch
 
 from . import build
 from ._launch import is_plain, require, stream_of
+from .flush import flush as f
 
 MAX_SLOTS = 64  # csrc/mesh_reduce.cu kMaxSlots
 
@@ -33,15 +34,17 @@ MAX_SLOTS = 64  # csrc/mesh_reduce.cu kMaxSlots
 def mesh_allreduce_plain(x: torch.Tensor, mean: bool = False,
                          copies: int = 1) -> torch.Tensor:
     """Plain version of K19: ``[copies, M]``, every row the slot-ordered
-    sum of ``x``'s rows (divided by n for the mean)."""
+    sum of ``x``'s rows (divided by n for the mean), each add and the
+    division flushed (ROADMAP C12; one slot is copied, not added)."""
     n = x.shape[0]
     acc = x[0].clone()
     for r in range(1, n):
-        acc = acc + x[r]
+        acc = f(f(acc) + f(x[r]))
     if mean:
         # A 0-d tensor divisor: a true division (a Python scalar would
         # let CUDA multiply by its reciprocal).
-        acc = acc / torch.full((), n, dtype=acc.dtype, device=acc.device)
+        acc = f(f(acc) / torch.full((), n, dtype=acc.dtype,
+                                    device=acc.device))
     return acc.unsqueeze(0).repeat(copies, *([1] * acc.dim()))
 
 

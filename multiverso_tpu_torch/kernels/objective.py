@@ -1,7 +1,16 @@
 """Pieces shared by the plain versions of the word2vec step kernels
-(K4-K8): the window offsets and the clipped sigmoid cross-entropy with
+(K4-K10): the window offsets and the clipped sigmoid cross-entropy with
 its gradient formed as JAX's autodiff forms it (ROADMAP C9). The CUDA
 kernels carry the same functions in ``csrc/w2v_common.cuh``.
+
+Every arithmetic operation of these plain versions flushes float32
+subnormals on its inputs and its result (``flush.flush``), as the
+reference's XLA does on the CPU and the kernels do through
+``-ftz=true`` (ROADMAP C12); a clip, a ``where`` or a negation selects
+or moves a value and flushes nothing. A dot product (``dot``: the
+reference's ``sum`` of products, its ``einsum``) flushes its inputs,
+each product and its result; its partial sums, taken in torch's order,
+are not flushed one by one.
 """
 
 from __future__ import annotations
@@ -10,12 +19,37 @@ from typing import List
 
 import torch
 
+from .flush import flush as f
+
 MAX_EXP = 6.0  # word2vec.c's sigmoid-table range (model.py _MAX_EXP)
 
 
 def offsets(W: int) -> List[int]:
     """The 2W window offsets -W..-1, 1..W (column j of a pair mask)."""
     return [o for o in range(-W, W + 1) if o != 0]
+
+
+def dot(a: torch.Tensor, b: torch.Tensor, dim: int) -> torch.Tensor:
+    """``(a * b).sum(dim)`` (broadcasting) with the products and the sum
+    flushed: an ``einsum`` of the reference as XLA's CPU runtime forms
+    it, where a product below 2^-126 counts as zero. A sum starts from
+    +0, so a sum of zeros is +0; over a dimension of one element there
+    is no sum (XLA folds it away), and the product keeps its sign."""
+    prod = f(a * b)
+    if prod.shape[dim] == 1:
+        return prod.squeeze(dim)
+    return f(prod.sum(dim))
+
+
+def sum_terms(terms) -> torch.Tensor:
+    """``terms[-1] + ... + terms[0]``, each add flushed: the cotangents
+    of an input used once a term, summed as JAX's backward pass sums
+    them (the last use's first), with no zero to start from — a sum of
+    zeros is -0 only where every term is."""
+    acc = terms[-1]
+    for t in reversed(terms[:-1]):
+        acc = f(acc + t)
+    return acc
 
 
 def clip_grad(x: torch.Tensor) -> torch.Tensor:
@@ -34,7 +68,8 @@ def clip_grad(x: torch.Tensor) -> torch.Tensor:
 def xent(x: torch.Tensor, y) -> torch.Tensor:
     """Numerically stable sigmoid cross-entropy (model.py
     ``_sigmoid_xent``); ``y`` a float or a tensor of labels like ``x``."""
-    return torch.clamp(x, min=0) - x * y + torch.log1p(torch.exp(-x.abs()))
+    return f(f(torch.clamp(x, min=0) - f(x * y))
+             + f(torch.log1p(f(torch.exp(-x.abs())))))
 
 
 def xent_grad(x: torch.Tensor, y) -> torch.Tensor:
@@ -42,23 +77,37 @@ def xent_grad(x: torch.Tensor, y) -> torch.Tensor:
     x == 0 and d|x|/dx = 1 at x == 0, so the gradient at exactly 0 is
     -y (not sigmoid(0) - y) — which is what every logit against the
     zero-initialized output table gives."""
-    e = torch.exp(-x.abs())
+    e = f(torch.exp(-x.abs()))
     relu = torch.where(x > 0, torch.ones_like(x),
                        torch.where(x == 0, torch.full_like(x, 0.5),
                                    torch.zeros_like(x)))
     sgn = torch.where(x >= 0, torch.ones_like(x), -torch.ones_like(x))
-    return relu - y - sgn * (e / (1.0 + e))
+    return f(f(relu - y) - f(sgn * f(e / f(1.0 + e))))
+
+
+def masked_grad(x: torch.Tensor, raw: torch.Tensor, y,
+                weight) -> torch.Tensor:
+    """d/d raw of ``xent(clip(raw), y) * weight``, as JAX's autodiff forms
+    it: the weight enters the cotangent first, and the cotangent is a
+    sum of signed zeros with a +0 among them where the weight is zero
+    (hence ``+ 0.0``: +0, never -0); then the clip's factor."""
+    return f(f(f(xent_grad(x, y) * weight) + 0.0) * clip_grad(raw))
 
 
 def band_sum(coef: torch.Tensor, vec: torch.Tensor, W: int
              ) -> torch.Tensor:
     """The band pass of the banded objectives: ``out[c + W + off_j] +=
     coef[c, j] * vec[c]`` for every center c and offset j — the gradient
-    of the C+2W band rows from per-(center, offset) coefficients.
-    ``coef`` [C, 2W], ``vec`` [C, ...]; returns [C+2W, ...]."""
+    of the C+2W band rows from per-(center, offset) coefficients, as the
+    reference's backward pass forms it: each offset's products padded
+    with +0 to the band (a slice's transpose), the pads summed
+    (``sum_terms``), every product and sum flushed. ``coef`` [C, 2W],
+    ``vec`` [C, ...] (flushed); returns [C+2W, ...]."""
     C = coef.shape[0]
-    out = vec.new_zeros((C + 2 * W,) + tuple(vec.shape[1:]))
     shape = (C,) + (1,) * (vec.dim() - 1)
+    pads = []
     for j, off in enumerate(offsets(W)):
-        out[W + off:W + off + C] += coef[:, j].reshape(shape) * vec
-    return out
+        pad = vec.new_zeros((C + 2 * W,) + tuple(vec.shape[1:]))
+        pad[W + off:W + off + C] = f(coef[:, j].reshape(shape) * vec)
+        pads.append(pad)
+    return sum_terms(pads)

@@ -30,7 +30,9 @@ import torch
 
 from . import build
 from ._launch import is_plain, require, stream_of
-from .objective import MAX_EXP, clip_grad, xent, xent_grad
+from .flush import add_
+from .flush import flush as f
+from .objective import MAX_EXP, dot, masked_grad, xent
 
 _PAIRS_PER_BLOCK = 4  # one warp a pair (csrc/pair_offset.cu kPairWarps)
 #: The most negatives a pair the kernel takes (K + 1 dot products in one
@@ -44,21 +46,24 @@ _arrived = {}
 
 def pair_offset_grad_plain(v: torch.Tensor, u: torch.Tensor,
                            m: torch.Tensor, K: int, scale: float):
-    """Plain version of K8: (d_v, d_u, loss, examples)."""
+    """Plain version of K8: (d_v, d_u, loss, examples), every operation
+    flushed (``objective``'s note)."""
     C, D = v.shape
+    v, u = f(v), f(u)
     u_pos = u[:C]
     u_neg = u[C:].reshape(C, K, D)
-    pos_raw = (v * u_pos).sum(-1)
-    neg_raw = torch.einsum("cd,ckd->ck", v, u_neg)
+    pos_raw = dot(v, u_pos, -1)
+    neg_raw = dot(v[:, None], u_neg, -1)
     pos = torch.clamp(pos_raw, -MAX_EXP, MAX_EXP)
     neg = torch.clamp(neg_raw, -MAX_EXP, MAX_EXP)
-    loss = (xent(pos, 1.0) * m).sum() + (xent(neg, 0.0) * m[:, None]).sum()
-    gpos = xent_grad(pos, 1.0) * clip_grad(pos_raw) * m
-    gneg = xent_grad(neg, 0.0) * clip_grad(neg_raw) * m[:, None]
-    g_v = gpos[:, None] * u_pos + torch.einsum("ck,ckd->cd", gneg, u_neg)
-    g_pos = gpos[:, None] * v
-    g_neg = (gneg[:, :, None] * v[:, None, :]).reshape(C * K, D)
-    return (g_v * scale, torch.cat([g_pos, g_neg]) * scale, loss,
+    loss = f(f(f(xent(pos, 1.0) * m).sum())
+             + f(f(xent(neg, 0.0) * m[:, None]).sum()))
+    gpos = masked_grad(pos, pos_raw, 1.0, m)
+    gneg = masked_grad(neg, neg_raw, 0.0, m[:, None])
+    g_v = f(f(gpos[:, None] * u_pos) + dot(gneg[..., None], u_neg, 1))
+    g_pos = f(gpos[:, None] * v)
+    g_neg = f(gneg[:, :, None] * v[:, None, :]).reshape(C * K, D)
+    return (f(g_v * scale), f(torch.cat([g_pos, g_neg]) * scale), loss,
             m.sum())
 
 
@@ -70,9 +75,9 @@ def pair_offset_grad_inplace_plain(v: torch.Tensor, u_pos: torch.Tensor,
     C = v.shape[0]
     d_v, d_u, loss, examples = pair_offset_grad_plain(
         v, torch.cat([u_pos, u_neg]), m, K, scale)
-    v += d_v
-    u_pos += d_u[:C]
-    u_neg += d_u[C:]
+    add_(v, d_v)
+    add_(u_pos, d_u[:C])
+    add_(u_neg, d_u[C:])
     return loss, examples
 
 

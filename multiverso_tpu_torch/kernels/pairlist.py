@@ -50,7 +50,8 @@ import torch
 
 from . import build
 from ._launch import is_plain, require, stream_of
-from .objective import MAX_EXP, clip_grad, xent, xent_grad
+from .flush import flush as f
+from .objective import MAX_EXP, dot, masked_grad, xent
 
 _MAX_SMEM = 96 * 1024   # shared memory a block of warps may take
 
@@ -61,15 +62,15 @@ def _input_vec(ein: torch.Tensor, in_idx: torch.Tensor,
     or the masked window mean ``sum(mask * rows) / max(n, 1)``."""
     D = ein.shape[1]
     if win_mask is None:
-        v = ein.index_select(0, in_idx.to(torch.int64))
+        v = f(ein.index_select(0, in_idx.to(torch.int64)))
         return v, None, torch.ones(v.shape[0], dtype=v.dtype,
                                    device=v.device)
     B, W2 = in_idx.shape
-    rows = ein.index_select(0, in_idx.reshape(-1).to(torch.int64))
-    rows = rows.reshape(B, W2, D) * win_mask[:, :, None]
+    rows = f(ein.index_select(0, in_idx.reshape(-1).to(torch.int64)))
     n = win_mask.sum(dim=1)
     denom = torch.clamp(n, min=1.0)
-    return rows.sum(dim=1) / denom[:, None], denom, (n > 0).to(ein.dtype)
+    return (f(dot(rows.reshape(B, W2, D), win_mask[:, :, None], 1)
+              / denom[:, None]), denom, (n > 0).to(ein.dtype))
 
 
 def _input_grad(g_v: torch.Tensor, win_mask: Optional[torch.Tensor],
@@ -77,58 +78,61 @@ def _input_grad(g_v: torch.Tensor, win_mask: Optional[torch.Tensor],
     """``scale`` times the gradient of each input position: [B, D]
     (skip-gram) or one row a window slot [B*2W, D] (CBOW)."""
     if win_mask is None:
-        return g_v * scale
-    g = g_v / denom[:, None]
-    rows = g[:, None, :] * win_mask[:, :, None]
-    return (rows * scale).reshape(-1, g_v.shape[1])
+        return f(g_v * scale)
+    g = f(g_v / denom[:, None])
+    rows = f(g[:, None, :] * win_mask[:, :, None])
+    return f(rows * scale).reshape(-1, g_v.shape[1])
 
 
 def pairlist_ns_grad_plain(ein, eout, in_idx, win_mask, tgt_idx, neg_idx,
                            pair_mask, scale: float):
-    """Plain version of K9: (d_in, d_out, loss, count)."""
+    """Plain version of K9: (d_in, d_out, loss, count), every operation
+    flushed (``objective``'s note)."""
     D = ein.shape[1]
     B = tgt_idx.shape[0]
     NB, K = neg_idx.shape
     nb = B // NB
     v, denom, has_ctx = _input_vec(ein, in_idx, win_mask)
-    u_t = eout.index_select(0, tgt_idx.to(torch.int64))
-    u_n = eout.index_select(0, neg_idx.reshape(-1).to(torch.int64)
-                            ).reshape(NB, K, D)
+    u_t = f(eout.index_select(0, tgt_idx.to(torch.int64)))
+    u_n = f(eout.index_select(0, neg_idx.reshape(-1).to(torch.int64)
+                              )).reshape(NB, K, D)
     vb = v.reshape(NB, nb, D)
-    pos_raw = (v * u_t).sum(-1)
-    neg_raw = torch.einsum("nbd,nkd->nbk", vb, u_n)
+    pos_raw = dot(v, u_t, -1)
+    neg_raw = dot(vb[:, :, None], u_n[:, None], -1)
     pos = torch.clamp(pos_raw, -MAX_EXP, MAX_EXP)
     neg = torch.clamp(neg_raw, -MAX_EXP, MAX_EXP)
     mb = pair_mask.reshape(NB, nb, 1)
-    loss = (xent(pos, 1.0) * pair_mask).sum() + (xent(neg, 0.0) * mb).sum()
-    gpos = xent_grad(pos, 1.0) * clip_grad(pos_raw) * pair_mask
-    gneg = xent_grad(neg, 0.0) * clip_grad(neg_raw) * mb
-    g_v = gpos[:, None] * u_t + torch.einsum("nbk,nkd->nbd", gneg,
-                                             u_n).reshape(B, D)
-    g_t = gpos[:, None] * v
-    g_n = torch.einsum("nbk,nbd->nkd", gneg, vb).reshape(NB * K, D)
+    loss = f(f(f(xent(pos, 1.0) * pair_mask).sum())
+             + f(f(xent(neg, 0.0) * mb).sum()))
+    gpos = masked_grad(pos, pos_raw, 1.0, pair_mask)
+    gneg = masked_grad(neg, neg_raw, 0.0, mb)
+    g_v = f(f(gpos[:, None] * u_t)
+            + dot(gneg[..., None], u_n[:, None], 2).reshape(B, D))
+    g_t = f(gpos[:, None] * v)
+    g_n = dot(gneg[..., None], vb[:, :, None], 1).reshape(NB * K, D)
     return (_input_grad(g_v, win_mask, denom, scale),
-            torch.cat([g_t, g_n]) * scale, loss,
+            f(torch.cat([g_t, g_n]) * scale), loss,
             (pair_mask * has_ctx).sum())
 
 
 def pairlist_hs_grad_plain(ein, eout, in_idx, win_mask, points_idx, codes,
                            pair_mask, scale: float):
-    """Plain version of K10: (d_in, d_out, loss, count)."""
+    """Plain version of K10: (d_in, d_out, loss, count), every operation
+    flushed (``objective``'s note)."""
     D = ein.shape[1]
     B, L = points_idx.shape
     v, denom, has_ctx = _input_vec(ein, in_idx, win_mask)
-    u = eout.index_select(0, points_idx.reshape(-1).to(torch.int64)
-                          ).reshape(B, L, D)
+    u = f(eout.index_select(0, points_idx.reshape(-1).to(torch.int64)
+                            )).reshape(B, L, D)
     mask = (codes >= 0).to(ein.dtype) * pair_mask[:, None]
     labels = (1.0 - codes.to(ein.dtype)) * mask
-    raw = torch.einsum("bd,bld->bl", v, u)
+    raw = dot(v[:, None], u, -1)
     x = torch.clamp(raw, -MAX_EXP, MAX_EXP)
-    loss = (xent(x, labels) * mask).sum()
-    g = xent_grad(x, labels) * clip_grad(raw) * mask
-    g_v = torch.einsum("bl,bld->bd", g, u)
-    g_u = (g[:, :, None] * v[:, None, :]).reshape(B * L, D)
-    return (_input_grad(g_v, win_mask, denom, scale), g_u * scale, loss,
+    loss = f(f(xent(x, labels) * mask).sum())
+    g = masked_grad(x, raw, labels, mask)
+    g_v = dot(g[..., None], u, 1)
+    g_u = f(g[:, :, None] * v[:, None, :]).reshape(B * L, D)
+    return (_input_grad(g_v, win_mask, denom, scale), f(g_u * scale), loss,
             (pair_mask * has_ctx).sum())
 
 

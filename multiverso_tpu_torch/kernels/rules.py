@@ -41,7 +41,7 @@ import torch
 
 from . import build
 from ._launch import is_plain, require, stream_of
-from .flush import add_rows, flush
+from .flush import add_rows, flush, fma
 from .rows import (_wrapped, level_slots, row_gather_plain,
                    row_scatter_add_plain, scatter_plan)
 
@@ -65,7 +65,7 @@ def scalar(value, like: torch.Tensor) -> torch.Tensor:
                       device=like.device)
 
 
-def _inv_sqrt(x: torch.Tensor) -> torch.Tensor:
+def inv_sqrt(x: torch.Tensor) -> torch.Tensor:
     """``1 / sqrt(x)`` in float32 as two correctly rounded operations —
     K13's and K14's ``__fdiv_rn(1, __fsqrt_rn(x))``. The square root is
     taken in float64 and rounded once to float32, which is the correctly
@@ -78,25 +78,28 @@ def _inv_sqrt(x: torch.Tensor) -> torch.Tensor:
 
 def rule_step(rule: str, hyp, x0: torch.Tensor, s0: torch.Tensor,
               dv: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(step subtracted from the table, new state) of a stateful rule,
-    elementwise, in the reference's expression order, every operation
-    flushed on its inputs and its result (``flush``)."""
+    """(step subtracted from the table, new state) of a stateful rule's
+    row update, elementwise, in the reference's expression order, every
+    operation flushed on its inputs and its result (``flush``), and a
+    product fused into the add that follows it (``fma``) exactly where
+    the reference's ``apply_rows`` contracts it (ROADMAP C13, pinned by
+    ``tests/test_torch_fma.py``): momentum's ``m * s``, AdaGrad's
+    ``g * g`` and DCASGD's compensation term."""
     m, lr, rho, lam = (np.float32(v) for v in hyp)
     f = flush
     x0, s0, dv = f(x0), f(s0), f(dv)
     if rule == "momentum":
-        smooth = f(f(scalar(m, dv) * s0)
-                   + f(scalar(np.float32(1) - m, dv) * dv))
+        smooth = fma(scalar(m, dv), s0,
+                     f(scalar(np.float32(1) - m, dv) * dv))
         return smooth, smooth
     grad = f(dv / scalar(safe_lr(lr), dv))
     if rule == "adagrad":
-        g_sqr = f(s0 + f(grad * grad))
-        step = f(f(scalar(rho, dv) * grad) * _inv_sqrt(
+        g_sqr = fma(grad, grad, s0)
+        step = f(f(scalar(rho, dv) * grad) * inv_sqrt(
             f(g_sqr + scalar(ADAGRAD_EPS, dv))))
         return step, g_sqr
     lr_lam = f(scalar(lr, dv) * scalar(lam, dv))
-    comp = f(f(f(lr_lam * grad) * grad) * f(x0 - s0))
-    step = f(dv + comp)
+    step = fma(f(f(lr_lam * grad) * grad), f(x0 - s0), dv)
     return step, f(x0 - step)
 
 

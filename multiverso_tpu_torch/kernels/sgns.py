@@ -31,8 +31,9 @@ import torch
 
 from . import build
 from ._launch import SMEM_LIMIT, is_plain, require, round_up, stream_of
-from .objective import (MAX_EXP, band_sum, clip_grad, offsets, xent,
-                        xent_grad)
+from .flush import flush as f
+from .objective import (MAX_EXP, band_sum, dot, masked_grad, offsets,
+                        sum_terms, xent)
 
 
 def span_smem(S: int, W: int, K: int, B: int, D: int, warps: int) -> int:
@@ -72,30 +73,34 @@ def span_geometry(C: int, W: int, K: int, B: int, D: int):
 def banded_sgns_grad_plain(v: torch.Tensor, u: torch.Tensor,
                            pmask: torch.Tensor, W: int, K: int, B: int,
                            scale: float):
-    """Plain version of K4: (d_v, d_u, loss, pairs)."""
+    """Plain version of K4: (d_v, d_u, loss, pairs), every operation
+    flushed (``objective``'s note)."""
     C, D = v.shape
     nb = C // B
     offs = offsets(W)
+    v, u = f(v), f(u)
     u_band = u[:C + 2 * W]
     u_neg = u[C + 2 * W:].reshape(nb, K, D)
     nvalid = pmask.sum(dim=1)
     pos_raw = torch.stack(
-        [(v * u_band[W + off:W + off + C]).sum(-1) for off in offs], dim=1)
+        [dot(v, u_band[W + off:W + off + C], -1) for off in offs], dim=1)
     vb = v.reshape(nb, B, D)
-    neg_raw = torch.einsum("nbd,nkd->nbk", vb, u_neg)
+    neg_raw = dot(vb[:, :, None], u_neg[:, None], -1)
     pos = torch.clamp(pos_raw, -MAX_EXP, MAX_EXP)
     neg = torch.clamp(neg_raw, -MAX_EXP, MAX_EXP)
     nw = nvalid.reshape(nb, B, 1)
-    loss = (xent(pos, 1.0) * pmask).sum() + (xent(neg, 0.0) * nw).sum()
-    gpos = xent_grad(pos, 1.0) * clip_grad(pos_raw) * pmask
-    gneg = xent_grad(neg, 0.0) * clip_grad(neg_raw) * nw
-    g_v = torch.einsum("nbk,nkd->nbd", gneg, u_neg).reshape(C, D)
-    for j, off in enumerate(offs):
-        g_v = g_v + gpos[:, j:j + 1] * u_band[W + off:W + off + C]
+    loss = f(f(f(xent(pos, 1.0) * pmask).sum())
+             + f(f(xent(neg, 0.0) * nw).sum()))
+    gpos = masked_grad(pos, pos_raw, 1.0, pmask)
+    gneg = masked_grad(neg, neg_raw, 0.0, nw)
+    g_v = sum_terms(
+        [f(gpos[:, j:j + 1] * u_band[W + off:W + off + C])
+         for j, off in enumerate(offs)]
+        + [dot(gneg[..., None], u_neg[:, None], 2).reshape(C, D)])
     g_band = band_sum(gpos, v, W)
-    g_neg = torch.einsum("nbk,nbd->nkd", gneg, vb).reshape(nb * K, D)
-    d_u = torch.cat([g_band, g_neg]) * scale
-    return g_v * scale, d_u, loss, pmask.sum()
+    g_neg = dot(gneg[..., None], vb[:, :, None], 1).reshape(nb * K, D)
+    d_u = f(torch.cat([g_band, g_neg]) * scale)
+    return f(g_v * scale), d_u, loss, pmask.sum()
 
 
 def banded_sgns_grad(v: torch.Tensor, u: torch.Tensor, pmask: torch.Tensor,

@@ -705,7 +705,8 @@ class MatrixServer(ServerTable):
                 torch.from_numpy(values).to(device)
         num_workers = max(self._zoo.num_workers, 1)
         self._engine = UpdateEngine(rule, (padded, self._col_store),
-                                    self.dtype, num_workers, device)
+                                    self.dtype, num_workers, device,
+                                    cols=self.num_col)
         self._updater_stateless = self._engine.rule.stateless
         # Sparse staleness bitmap: one slot per logical consumer;
         # pipelined workers count twice (ref: sparse_matrix_table.cpp:

@@ -15,7 +15,13 @@ power-of-two bucket with the out-of-range sentinel (``pad_ids`` /
 ``pad_rows``, unchanged), so the ids on the wire and in the API have
 the same shapes in both packages; the row kernels (K3 for the stateless
 rules, K13 for the stateful ones, K14 for the fused update + gather)
-drop the sentinel and zero-extend the delta in columns and rows.
+drop the sentinel. The reference zero-extends a row delta to the table's
+width and to the id count (``pad_cols``, ``pad_row_count``), and adding
+that zero flushes a subnormal table element and moves a stateful rule's
+state (ROADMAP C12): ``_extend`` does the same wherever an in-range id
+lies past the delta's rows, or the delta is narrower than the engine's
+``cols``, and copies nothing on the usual shapes. A table's storage
+columns past ``cols`` are padding that every rule keeps at +0.
 """
 
 from __future__ import annotations
@@ -52,9 +58,12 @@ class UpdateEngine:
     """Applies a rule to a table's storage tensor, in place."""
 
     def __init__(self, rule: Optional[UpdaterRule], shape, dtype,
-                 num_workers: int, device=None):
+                 num_workers: int, device=None, cols: Optional[int] = None):
         self.rule = rule if rule is not None else create_rule(dtype=dtype)
         self.shape = tuple(shape)
+        # The columns that hold values: a row delta is zero-extended to
+        # them; the storage past them stays +0 under every rule.
+        self.cols = self.shape[-1] if cols is None else cols
         self.dtype = np.dtype(dtype)
         # Optimizer state lives on the table's device, shaped like the
         # storage (with a leading worker axis for adagrad and dcasgd).
@@ -103,13 +112,17 @@ class UpdateEngine:
                   "device-key row adds need a stateless updater "
                   "(default/sgd): duplicate ids must sum")
         distinct = False
-        if not is_device_array(row_ids):
+        host = not is_device_array(row_ids)
+        if host:
             distinct = ascending(row_ids, self.shape[0])
             row_ids, delta = pad_rows(row_ids, delta, self.shape[0])
-        ids = _on(row_ids, data.device).to(torch.int32)
         delta = _on(delta, data.device)
         delta = delta.reshape(-1, delta.shape[-1]) if delta.dim() >= 2 \
-            else delta.reshape(ids.numel(), -1)
+            else delta.reshape(int(np.prod(np.shape(row_ids))), -1)
+        if host:
+            row_ids = _trim(row_ids, delta.shape[0], self.shape[0])
+        ids = _on(row_ids, data.device).to(torch.int32)
+        delta = self._extend(ids.numel(), delta)
         if bounds is None:
             self.rule.rows(data, self._state, ids.reshape(-1),
                            delta.contiguous(), hyp, worker_id,
@@ -138,14 +151,31 @@ class UpdateEngine:
         # distinct, and the stateless rules' add then needs no sort.
         distinct = not is_device_array(row_ids) and ascending(
             unpadded(row_ids, self.shape[0]), self.shape[0])
-        ids = _on(row_ids, data.device).to(torch.int32).reshape(-1)
-        gets = _on(get_ids, data.device).to(torch.int32).reshape(-1)
         delta = _on(delta, data.device)
         delta = delta.reshape(-1, delta.shape[-1]).contiguous()
+        if not is_device_array(row_ids):
+            row_ids = _trim(row_ids, delta.shape[0], self.shape[0])
+        ids = _on(row_ids, data.device).to(torch.int32).reshape(-1)
+        gets = _on(get_ids, data.device).to(torch.int32).reshape(-1)
+        # A device mirror is built by ``pad_ids``: past the delta's rows
+        # it holds the sentinel only.
+        delta = self._extend(delta.shape[0] if is_device_array(row_ids)
+                             else ids.numel(), delta)
         values = self.rule.rows_gather(data, self._state, ids, delta, hyp,
                                        worker_id, gets, n_col,
                                        distinct=distinct)
         return data, values
+
+    def _extend(self, n: int, delta: torch.Tensor) -> torch.Tensor:
+        """``delta`` [k, d] zero-extended to ``n`` rows and ``cols``
+        columns, as the reference's engine extends it; the tensor itself
+        where it already covers them."""
+        k, d = delta.shape
+        if k >= n and d >= self.cols:
+            return delta
+        out = delta.new_zeros((max(n, k), max(d, self.cols)))
+        out[:k, :d] = delta
+        return out
 
     @property
     def state(self):
@@ -156,6 +186,17 @@ def _unpack(option: Optional[AddOption]) -> Tuple[np.ndarray, int]:
     if option is None:
         return _DEFAULT_HYP, 0
     return option.hyper_array(), max(option.worker_id, 0)
+
+
+def _trim(row_ids, k: int, num_rows: int) -> np.ndarray:
+    """Host ids without the ids past the delta's ``k`` rows where those
+    are all out of range (the bucket padding's sentinels: they take a
+    zero delta and drop, so the delta need not be extended for them)."""
+    ids = np.asarray(row_ids).reshape(-1)
+    tail = ids[k:]
+    if tail.size and not np.any((tail >= -num_rows) & (tail < num_rows)):
+        return ids[:k]
+    return ids
 
 
 def ascending(row_ids, num_rows: int) -> bool:

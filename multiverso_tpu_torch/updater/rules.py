@@ -20,7 +20,9 @@ place through buffer donation (``donate_argnums``,
 ``multiverso_tpu/updater/engine.py:83-84``); here each rule updates the
 table tensor and its state IN PLACE. ``dense`` is elementwise torch,
 every operation flushing float32 subnormals on its inputs and result
-as the reference's does (``kernels/flush.py``);
+as the reference's does, and fusing a product into the add that follows
+it where the reference's XLA contracts it (``kernels/flush.py`` ``fma``;
+ROADMAP C13);
 ``rows`` runs the row scatter-add kernel (K3, ``kernels/rows.py``) for
 the stateless rules — duplicate ids sum, out-of-range ids drop — and
 K13 (``kernels/rules.py``) for the stateful ones, where every occurrence
@@ -40,9 +42,9 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from ..kernels.flush import add_, flush
+from ..kernels.flush import add_, flush, fma
 from ..kernels.rows import row_scatter_add, row_scatter_add_bounded
-from ..kernels.rules import ADAGRAD_EPS  # noqa: F401 (the reference's name)
+from ..kernels.rules import ADAGRAD_EPS, inv_sqrt
 from ..kernels.rules import row_rule_apply, rows_apply_gather, rule_step
 from ..kernels.rules import safe_lr as _safe_lr
 from ..kernels.rules import scalar
@@ -163,9 +165,15 @@ class AdaGradRule(UpdaterRule):
         return _per_worker_zeros(shape, dtype, num_workers, device)
 
     def dense(self, data, state, delta, hyp, worker_id):
-        step, g_sqr = rule_step(self.name, hyp, data,
-                                _read_slot(state, worker_id), delta)
-        add_(data, step, -1)
+        # The reference's dense program also contracts the table's
+        # update, ``data - (rho * g) * r``, into a fused multiply-add.
+        f = flush
+        s0 = _read_slot(state, worker_id)
+        grad = f(f(delta) / scalar(_safe_lr(hyp[1]), data))
+        g_sqr = fma(grad, grad, s0)
+        rg = f(scalar(hyp[2], data) * grad)
+        r = inv_sqrt(f(g_sqr + scalar(ADAGRAD_EPS, data)))
+        data.copy_(fma(-rg, r, data))
         if worker_id < state.shape[0]:
             state[worker_id].copy_(g_sqr)
         return data, state
@@ -190,7 +198,7 @@ class DCASGDRule(UpdaterRule):
         grad = f(delta / scalar(_safe_lr(hyp[1]), data))
         comp = f(f(f(scalar(hyp[3], data) * grad) * grad)
                  * f(f(data) - f(_read_slot(state, worker_id))))
-        add_(data, f(delta + f(lr * comp)), -1)
+        add_(data, fma(lr, comp, delta), -1)
         if worker_id < state.shape[0]:
             # A copy of the new table, never a view of the live storage.
             state[worker_id].copy_(data)

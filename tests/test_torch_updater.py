@@ -311,7 +311,10 @@ def test_adagrad_step_is_one_over_sqrt():
     # reference's expression order with 1/sqrt, each operation correctly
     # rounded (numpy's, and K13's __fdiv_rn(1, __fsqrt_rn(.)) on the
     # card), bit for bit. (torch.sqrt of a float32 CPU tensor is not
-    # correctly rounded for ~0.6% of inputs on an AVX512 host.)
+    # correctly rounded for ~0.6% of inputs on an AVX512 host.) G + g*g
+    # is one fused multiply-add, as the reference's XLA contracts it
+    # (ROADMAP C13): the exact sum, rounded once.
+    from fractions import Fraction
     from multiverso_tpu_torch.kernels import rules as krules
     rng = np.random.default_rng(21)
     rows, cols = 512, 16
@@ -323,7 +326,11 @@ def test_adagrad_step_is_one_over_sqrt():
              ).astype(np.float32)
     m, lr, rho, lam = HYP
     g = delta / np.maximum(lr, np.float32(1e-12))
-    g_sqr = state[0, ids] + g * g
+    g_sqr = np.array(
+        [np.float32(Fraction(float(a)) * Fraction(float(a))
+                    + Fraction(float(b)))
+         for a, b in zip(g.reshape(-1), state[0, ids].reshape(-1))],
+        np.float32).reshape(g.shape)
     inv_sqrt = np.float32(1) / np.sqrt(g_sqr + np.float32(1e-6))
     step = (rho * g) * inv_sqrt
     want = data.copy()
