@@ -193,12 +193,15 @@ Usage: ``python3 chip_smoke.py`` (one card). ``--profile DIR`` adds a
 device's busy share and the host monitors) and keeps the Chrome trace
 of every counted path. ``--multiserver-only`` builds the kernels and
 runs phase 11 alone (its ``kernels`` line and the card's line, no
-result line), ``--ma-only`` phase 12 alike; ``--step-kernels-only [NAMES]``
+result line), ``--ma-only`` phase 12 and ``--logreg-only`` phase 9
+alike; ``--step-kernels-only [NAMES]``
 holds and times the word2vec step kernels K4-K8 alone at every path's
 shape (``step_result``; K8 also in its in-place form and the PS
-per-pair block step) and K12 with K20 at ``lr_sparse_local``'s, each
-launch by launch (no counted runs, no result line; NAMES keeps the
-kernels named, e.g. ``pair_offset_grad,sparse_lr_apply``).
+per-pair block step), K12 with K20 at ``lr_sparse_local``'s and K19
+in both forms at ``ma_mesh4``'s, each launch by launch (no counted
+runs, no result line; NAMES keeps the kernels named, e.g.
+``pair_offset_grad,sparse_lr_apply``; ``key_sort`` is K20 alone;
+``mesh_allreduce,key_sort`` builds no corpus).
 ``--cpu-rehearsal`` runs
 phases 2 and 4-12 at a tiny size
 on the CPU with the plain versions (no kernels, no timing, no result
@@ -322,7 +325,31 @@ def log_ftz(library: str) -> None:
         counts[op] = (total + 1, ftz + (".FTZ" in suffix))
     log("[build] SASS float ops (all / .FTZ): " + ", ".join(
         f"{op} {t} / {f}" for op, (t, f) in sorted(counts.items())))
+    log_load_pipeline(out, "mesh_reduce_cu")
 
+
+def log_load_pipeline(sass: str, needle: str) -> None:
+    """For each kernel of ``sass`` whose name holds ``needle`` (K19's):
+    the most 128-bit global loads it issues between two float adds (the
+    loads a thread has in flight before it adds), and the forms of its
+    global loads and stores (``.EF``: evict first, the streaming hint;
+    ``.CONSTANT``: the read-only path)."""
+    import re
+    for name, body in re.findall(r"Function : (\S+)(.*?)(?=Function : |\Z)",
+                                 sass, re.S):
+        if needle not in name:
+            continue
+        ops = re.findall(r"\b(LDG\.[A-Z0-9.]+|STG\.[A-Z0-9.]+|FADD)", body)
+        run = most = 0
+        for op in ops:
+            if op == "FADD":
+                run = 0
+            elif op.startswith("LDG") and ".128" in op:
+                run += 1
+                most = max(most, run)
+        forms = sorted({op for op in ops if op != "FADD"})
+        log(f"[build] {name[-48:]}: at most {most} 128-bit loads between "
+            f"two float adds; {', '.join(forms)}")
 
 
 def card_line() -> str:
@@ -2177,9 +2204,10 @@ def lr_case(torch, np, tag: str, config, batch, gen, device, ps: bool,
                 ta, lrk.touched_rows(keys, R), vg, dg, count, reg,
                 config.regular_coef, scale, ftrl, want_rows, pa2)
 
-        split = time_split(torch, run_kernel)
-        log_split("sparse_lr_apply", tag, split)
-        app["ms"] = sum(ms for _, ms in split)
+        log_split("sparse_lr_apply", tag, time_split(torch, run_kernel))
+        # K20's cooperative launch may be lost from a profiler trace:
+        # the call's time from queued CUDA events.
+        app["ms"] = time_queued_ms(torch, run_kernel)
         app["plain_ms"] = time_ms(torch, run_plain)
         entries = [fwd, app]
         if hasattr(lrk, "key_sort"):
@@ -2205,46 +2233,132 @@ def no_sync(torch, fn):
         torch.cuda.set_sync_debug_mode(0)
 
 
+def kernel_names(torch, fn, reps: int = REPS):
+    """(kernels a call, kernel names) of ``fn()`` from one
+    ``torch.profiler`` trace of ``reps`` calls after warm-up (a session
+    that records nothing is traced again, as in ``time_ms``). The
+    profiler can lose a share of a cooperative kernel's launches (15 of
+    20 seen), so a count below one a call is a loss, not a call that
+    launched nothing; the times come from ``time_queued_ms``."""
+    import torch.profiler as tp
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    for attempt in range(3):
+        with tp.profile(activities=[tp.ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = [evt for evt in prof.key_averages()
+                  if float(getattr(evt, "self_device_time_total", 0.0)) > 0]
+        count = sum(evt.count for evt in events)
+        if count:
+            return count / reps, sorted({evt.key[:40] for evt in events})
+        log(f"[time] the profiler recorded no device time (trace "
+            f"{attempt + 1} of 3)")
+    raise RuntimeError("the profiler recorded no device time")
+
+
+def time_queued_ms(torch, fn, reps: int = REPS) -> float:
+    """Device time of one ``fn()`` call, the gaps between its launches
+    included: CUDA events around ``reps`` calls that the host queues
+    behind a spin kernel (``torch.cuda._sleep``), so the card runs them
+    back to back and the host's launch time is hidden. If the spin ended
+    before the host had queued every call, it is taken again, longer.
+    For calls of tens of microseconds, where ``time_ms``'s profiler may
+    lose cooperative launches and events around unqueued calls would
+    time the host."""
+    for _ in range(3):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    cycles = 20_000_000
+    for _ in range(4):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        queued = not start.query()
+        torch.cuda.synchronize()
+        if queued:
+            return start.elapsed_time(end) / reps
+        cycles *= 4
+    raise RuntimeError("the host did not queue the calls within the spin")
+
+
 def check_key_sort(torch, keys, R: int):
     """K20 against its plain version, ``torch.sort(stable=True)`` of the
     wrapped keys, bit for bit (keys and positions) and twice alike: on
     phase 9's keys, all equal, all dropped (every id past either end),
-    and random ids into a table of 2^31 - 1 rows (31 key bits). Timed
-    at phase 9's keys; the library call is ``torch.sort(stable=True)``
-    of the keys already wrapped."""
+    random ids into a table of 2^31 - 1 rows (31 key bits), one key,
+    1,000 keys (one short tile), and 4M keys (2,048 tiles: more than the
+    resident blocks, so a block takes several). At phase 9's keys also
+    one launch a call (the wrapper's count over ``REPS`` calls, and one
+    kernel name and at most one kernel a call in a profiler trace) and
+    no host sync. Timed there with ``time_queued_ms``, as are its plain
+    version and the library call, ``torch.sort(stable=True)`` of the
+    keys already wrapped."""
     from multiverso_tpu_torch.kernels import keysort
     gen = torch.Generator(device=keys.device)
     gen.manual_seed(31)
     big = 2 ** 31 - 1
     dropped = torch.full_like(keys, R + 5)
     dropped[::2] = -R - 3
+
+    def ids(n, lo, hi):
+        return torch.randint(lo, hi, (n,), generator=gen,
+                             device=keys.device, dtype=torch.int32)
     cases = (("phase 9's keys", keys, R),
              ("all equal", torch.full_like(keys, 7), R),
              ("all dropped", dropped, R),
-             ("2^31 - 1 rows", torch.randint(
-                 -2 ** 31, big, keys.shape, generator=gen,
-                 device=keys.device, dtype=torch.int32), big))
+             ("2^31 - 1 rows", ids(keys.numel(), -2 ** 31, big), big),
+             ("1 key", ids(1, -R, R), R),
+             ("1,000 keys", ids(1000, -R - 9, R + 9), R),
+             ("4M keys", ids(4 << 20, -R - 9, R + 9), R))
     bad = []
-    for name, ids, rows in cases:
-        got = keysort.key_sort(ids, rows)
-        again = keysort.key_sort(ids, rows)
-        want = keysort.key_sort_plain(ids, rows)
+    for name, case_ids, rows in cases:
+        got = keysort.key_sort(case_ids, rows)
+        again = keysort.key_sort(case_ids, rows)
+        want = keysort.key_sort_plain(case_ids, rows)
         if not all(torch.equal(x, y) and torch.equal(x, z)
                    for x, y, z in zip(got, again, want)):
             bad.append(name)
+    del cases
     n = keys.numel()
+    before = keysort.key_sort.launches
+    for _ in range(REPS):
+        keysort.key_sort(keys, R)
+    wrapper = (keysort.key_sort.launches - before) / REPS
+    per_call, names = kernel_names(torch, lambda: keysort.key_sort(keys, R))
+    # The kernels a call the wrapper launches (an earlier tree's six
+    # launches say nothing).
+    want = getattr(keysort, "KERNELS_A_CALL", None)
+    if wrapper != 1 or want is not None and (len(names) != want
+                                             or per_call > want):
+        bad.append(f"{per_call:g} kernels a call traced")
+    synced = no_sync(torch, lambda: keysort.key_sort(keys, R))[1]
+    if not synced:
+        bad.append("a host sync")
     wrapped = keysort.sort_keys(keys, R).to(torch.int32)
     result = dict(
         name="key_sort", ok=not bad, max_abs_err=0.0 if not bad else 1.0,
         tol=f"keys and positions bit for bit vs torch.sort(stable=True) "
-            f"and twice alike on {', '.join(c[0] for c in cases)}"
+            f"and twice alike on phase 9's keys, all equal, all dropped, "
+            f"2^31 - 1 rows, 1 key, 1,000 keys, 4M keys; {wrapper:g} "
+            f"launch a call, {per_call:g} kernels a call traced "
+            f"({', '.join(names)}); no host sync "
+            f"{'yes' if synced else 'NO'}"
             f"{'' if not bad else '; FAIL ' + ', '.join(bad)} "
             f"({keysort.key_bits(R)} key bits at R = {R})",
         source=_CSRC + "key_sort.cu",
         replaces=_LR_REF + "objective.py:106",
-        ms=time_ms(torch, lambda: keysort.key_sort(keys, R)),
-        plain_ms=time_ms(torch, lambda: keysort.key_sort_plain(keys, R)),
-        library_ms=time_ms(torch, lambda: torch.sort(wrapped, stable=True)),
+        ms=time_queued_ms(torch, lambda: keysort.key_sort(keys, R)),
+        plain_ms=time_queued_ms(
+            torch, lambda: keysort.key_sort_plain(keys, R)),
+        library_ms=time_queued_ms(
+            torch, lambda: torch.sort(wrapped, stable=True)),
         bound=bound(n * 4 + n * 4 * 2))
     return result
 
@@ -2658,21 +2772,24 @@ def tbl_check_rule(torch, rules, rule: str, replaces: str, table, state,
     return result
 
 
-def tbl_exact_stateful(torch, rules, rule: str, hyp, device, fused: bool):
+def tbl_exact_stateful(torch, rules, rule: str, hyp, device, fused: bool,
+                       C: int = TBL_COLS):
     """K13 (or K14, ``fused``, gathering the same ids) under a stateful
     rule against its plain version on the CPU, bit for bit (int32 views
     of the table, the state and the gathered rows): the kernels fuse a
     product into an add exactly where the reference's XLA does
-    (``__fmaf_rn``; ROADMAP C13) and the plain versions take the exact
+    (``__fmaf_rn``; ROADMAP C13: momentum's last column of rows up to 33
+    floats the other product) and the plain versions take the exact
     fused form (``flush.fma``), so with the phase's hyperparameters,
-    whose products round, the two agree to the bit. A 100,000 x 50 table
-    (rows not 16-byte aligned, as the bench's), 20,000 ids: 5% of them
+    whose products round, the two agree to the bit. A 100,000 x C table
+    (50: rows not 16-byte aligned, as the bench's; 16: a narrow row
+    whose last column swaps), 20,000 ids: 5% of them
     repeating another's row, one row at 512 positions, wrapped and
     out-of-range ids, the last 16 ids past the delta's rows; worker 0
     and a worker past the slots. The plain version runs on the CPU,
     where a run's steps add in position order, as the kernels add them.
     Returns (ok, text)."""
-    R, C, n = 100_000, TBL_COLS, 20_000
+    R, n = 100_000, 20_000
     gen = torch.Generator(device=device)
     gen.manual_seed(41)
     table = torch.randn((R, C), generator=gen, device=device) * 0.1
@@ -2707,9 +2824,9 @@ def tbl_exact_stateful(torch, rules, rule: str, hyp, device, fused: bool):
                 diff = int((x.to(cpu).view(torch.int32)
                             != y.view(torch.int32)).sum())
                 bad.append(f"worker {worker} {what}: {diff} differ")
-    text = ("bit for bit vs the plain version on the CPU (20,000 ids, "
-            "repeats, a row at 512 positions, edge ids, ids past the "
-            "delta, workers 0 and 3): "
+    text = (f"bit for bit vs the plain version on the CPU at width {C} "
+            f"(20,000 ids, repeats, a row at 512 positions, edge ids, ids "
+            f"past the delta, workers 0 and 3): "
             + ("yes" if not bad else f"NO ({'; '.join(bad)})"))
     return not bad, text
 
@@ -2902,10 +3019,11 @@ def tbl_kernel_checks(torch, np, device, card: str):
         del state
         for entry, fused in ((out[f"tbl_dirty_{suffix}"][0], False),
                              (out[f"tbl_fused_{suffix}"][0], True)):
-            exact_ok, exact_text = tbl_exact_stateful(torch, rules, suffix,
-                                                      hyp, device, fused)
-            entry.update(ok=entry["ok"] and exact_ok,
-                         tol=f"{entry['tol']}; {exact_text}")
+            for width in (TBL_COLS, 16):
+                exact_ok, exact_text = tbl_exact_stateful(
+                    torch, rules, suffix, hyp, device, fused, width)
+                entry.update(ok=entry["ok"] and exact_ok,
+                             tol=f"{entry['tol']}; {exact_text}")
     # The grid of the deltas' largest sum: the row at 4,096 positions.
     base, grid_delta = on_grid(torch, table, run, delta)
     out["tbl_fused_default"] = [tbl_check_fused(
@@ -3562,6 +3680,9 @@ def run_multiserver_phase(torch, np, mv, device, dictionary, tokenized,
 # MACorpusTrainer over LocalCluster(MA_RANKS, ["-ma=true"]); ma_sgd4:
 # MASGDStep on MA_SLOTS slots (the reference test's linear regression).
 MA_SLOTS, MA_C, MA_G, MA_GROUPS = 4, 16384, 16, 4
+# The bench corpus's dictionary (phase 12's table rows): K19's shape when
+# ``--step-kernels-only mesh_allreduce`` builds no corpus.
+MA_BENCH_WORDS = 1_013_245
 MA_RANKS, MA_AVG_EVERY, MA_RANK_GROUPS = 2, 4, 8
 MA_SGD_STEPS, MA_SGD_BATCH = 60, 16
 _MA_SRC = _CSRC + "mesh_reduce.cu"
@@ -3593,7 +3714,8 @@ def ma_k19_check(torch, x, replaces: str, mean: bool, copies: int):
     past 64 MB are timed with CUDA events over ``REPS`` calls: there
     ``time_ms``'s profiler sums have read below the byte bound (PERF.md
     §6); smaller ones with ``time_ms``, whose events would time the
-    launches."""
+    launches. The mean form is timed in turn with ``x.mean(0)``, five
+    rounds, medians."""
     from multiverso_tpu_torch.kernels import mesh
     n, m = x.shape
     got = mesh.mesh_allreduce(x, mean, copies)
@@ -3611,8 +3733,8 @@ def ma_k19_check(torch, x, replaces: str, mean: bool, copies: int):
         return mesh.mesh_allreduce(x, mean, copies)
     ms, library_ms = timer(torch, kernel), timer(torch, library)
     if mean:
-        # The mean form against ``x.mean(0)``: five rounds, the two in
-        # turn (kernel, library, library, kernel, ...), medians.
+        # The mean form against ``x.mean(0)``: five rounds, in turn
+        # (kernel then library, then backwards ...), medians.
         k_ms, l_ms = [], []
         turn = [(kernel, k_ms), (library, l_ms)]
         for r in range(5):
@@ -3631,6 +3753,33 @@ def ma_k19_check(torch, x, replaces: str, mean: bool, copies: int):
             x, mean, copies)),
         library_ms=library_ms,
         bound=bound((n + copies) * m * 4))
+
+
+def ma_k19_forms(torch, device):
+    """K19's other forms against the plain version, bit for bit: 1, 2, 5
+    and 8 slots (the mean to one copy and the sum
+    to every slot), M a multiple of 4 and not (the scalar form), and an
+    unaligned view (a contiguous tensor 4 bytes past a 16-byte
+    boundary). Returns (ok, text)."""
+    from multiverso_tpu_torch.kernels import mesh
+    bad, cases = [], 0
+    for n in (1, 2, 5, 8):
+        for m in (1 << 20, (1 << 20) + 3):
+            for unaligned in (False, True):
+                buf = ma_spread_values(torch, (n * m + 1,), device, 7 + n)
+                x = (buf[1:] if unaligned else buf[:-1]).view(n, m)
+                for mean, copies in ((True, 1), (False, n)):
+                    want = mesh.mesh_allreduce_plain(x, mean, copies)
+                    got = mesh.mesh_allreduce(x, mean, copies)
+                    cases += 1
+                    if not torch.equal(got.view(torch.int32),
+                                       want.view(torch.int32)):
+                        bad.append(f"n={n} M={m} unaligned={unaligned}"
+                                   f" mean={mean}")
+    text = (f"other forms bit for bit ({cases} calls: 1, 2, 5, 8 slots, "
+            f"M = 2^20 and 2^20 + 3, aligned and not, mean and sum): "
+            + ("yes" if not bad else f"NO ({'; '.join(bad[:4])})"))
+    return not bad, text
 
 
 def ma_spread_values(torch, shape, device, seed: int):
@@ -3734,6 +3883,9 @@ def ma_mesh_path(torch, np, device, dictionary, tokenized, card: str,
         sum_form = ma_k19_check(torch, x, _REF + "439", False, MA_SLOTS)
         del x
         free(torch, device)
+        forms_ok, forms_text = ma_k19_forms(torch, device)
+        mean_form.update(ok=mean_form["ok"] and forms_ok,
+                         tol=f"{mean_form['tol']}; {forms_text}")
         report([mean_form, sum_form], card, path)
         # The kernels line keeps the form this path runs (the mean to one
         # copy); the allreduce form's numbers are in the log above.
@@ -3995,7 +4147,11 @@ def run_step_kernels_phase(torch, np, mv, device, dictionary, tokenized,
     path that runs it (``ps``, the local and PS modes but the per-pair
     ones; ``ps_sgns_g8`` and ``ma_mesh4`` share ``ps``'s and
     ``local_sgns``'s), plus K4 and K5 with a negative block wider than a
-    thread block. Returns the kernel results."""
+    thread block; K12 with K20 (``sparse_lr_apply``; ``key_sort`` K20
+    alone) at ``lr_sparse_local``'s shapes; K19 (``mesh_allreduce``) in
+    both forms at ``ma_mesh4``'s (``dictionary`` None: the bench
+    corpus's size, ``MA_BENCH_WORDS``; these three need no corpus).
+    Returns the kernel results."""
     from multiverso_tpu_torch.models.wordembedding import (
         DeviceCorpusTrainer, PSDeviceCorpusTrainer, PSWord2Vec, Word2Vec,
         Word2VecConfig)
@@ -4050,6 +4206,24 @@ def run_step_kernels_phase(torch, np, mv, device, dictionary, tokenized,
                                   or "sparse_lr_apply" in chosen):
         results += report(lr_apply_case(torch, np, device), card,
                           "lr_sparse_local")
+    elif device.type == "cuda" and "key_sort" in chosen:
+        keys, values, labels = criteo_like(np, LR_BATCH, seed=9)
+        batch = lr_batches(np, keys, values, labels, LR_BATCH)[0]
+        results += report([check_key_sort(
+            torch, torch.from_numpy(batch.keys.astype(np.int32)).to(device),
+            lr_config(_LR_SGD).input_size + 1)], card, "lr_sparse_local")
+    if device.type == "cuda" and (chosen is None
+                                  or "mesh_allreduce" in chosen):
+        V = MA_BENCH_WORDS if dictionary is None else dictionary.size
+        x = ma_spread_values(torch, (MA_SLOTS, V * dim), device, 12)
+        forms = [ma_k19_check(torch, x, _REF + "439", True, 1),
+                 ma_k19_check(torch, x, _REF + "439", False, MA_SLOTS)]
+        del x
+        free(torch, device)
+        forms_ok, forms_text = ma_k19_forms(torch, device)
+        forms[0].update(ok=forms[0]["ok"] and forms_ok,
+                        tol=f"{forms[0]['tol']}; {forms_text}")
+        results += report(forms, card, "ma_mesh4")
     return results
 
 
@@ -4092,13 +4266,17 @@ def main(argv=None) -> int:
     parser.add_argument("--ma-only", action="store_true",
                         help="build, then run phase 12 alone on the "
                              "bench corpus (no result line)")
+    parser.add_argument("--logreg-only", action="store_true",
+                        help="build, then run phase 9 (logistic "
+                             "regression) alone (no result line)")
     parser.add_argument("--step-kernels-only", nargs="?", const="all",
                         default="", metavar="NAMES",
                         help="build, then hold and time the word2vec "
                              "step kernels K4-K8 alone at every path's "
-                             "shape, and K12 with K20 at lr_sparse_local's "
-                             "(no result line); NAMES (comma-separated "
-                             "kernel names) keeps those alone")
+                             "shape, K12 with K20 at lr_sparse_local's and "
+                             "K19 at ma_mesh4's (no result line); NAMES "
+                             "(comma-separated kernel names, key_sort for "
+                             "K20 alone) keeps those alone")
     args = parser.parse_args(argv)
     import numpy as np
     import torch
@@ -4135,13 +4313,23 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory(prefix="mv_chip_smoke_") as workdir:
         from multiverso_tpu_torch.models.wordembedding import synthetic
         if args.step_kernels_only:
-            dictionary, tokenized = bench_corpus(
-                workdir, sentences or synthetic.SENTENCES)
-            reuse_huffman_trees()
+            dictionary = tokenized = None
+            if not set(args.step_kernels_only.split(",")) <= {
+                    "mesh_allreduce", "key_sort", "sparse_lr_apply"}:
+                dictionary, tokenized = bench_corpus(
+                    workdir, sentences or synthetic.SENTENCES)
+                reuse_huffman_trees()
             run_step_kernels_phase(torch, np, mv, device, dictionary,
                                    tokenized, card, dim,
                                    64 if rehearsal else 1,
                                    args.step_kernels_only)
+            print(card, flush=True)
+            return 3 if rehearsal else 0
+        if args.logreg_only:
+            results, counts = run_logreg_phase(
+                torch, np, mv, device, card, workdir, args.profile,
+                rehearsal)
+            print(json.dumps(kernels_line(results, counts)), flush=True)
             print(card, flush=True)
             return 3 if rehearsal else 0
         if args.multiserver_only or args.ma_only:

@@ -11,7 +11,8 @@
 // table, in one program.
 //
 // The rules, for an id r taken by a worker w with delta row dv:
-//   momentum: s' = fma(m, s[r], (1-m)*dv);  s[r] = s';  data[r] -= s'
+//   momentum: s' = fma(m, s[r], (1-m)*dv) (in column swap_col
+//             fma(1-m, dv, m*s[r]));  s[r] = s';  data[r] -= s'
 //   adagrad:  g = dv/max(lr,1e-12);  G' = fma(g, g, G[w,r]);
 //             data[r] -= rho*g*(1/sqrt(G'+1e-6));  G[w,r] = G'
 //   dcasgd:   g = dv/max(lr,1e-12);
@@ -96,6 +97,10 @@ enum RuleCode : int {
 
 struct Hyp {
   float m, one_m, lr, safe_lr, rho, lam;
+  // Momentum: the column whose fused product is (1-m)*dv, not m*s (the
+  // last one of rows up to 33 floats, as the reference's row programs
+  // contract it; -1 for none). From the row width, on the host.
+  int swap_col;
 };
 
 struct Rows {
@@ -125,14 +130,16 @@ struct Gather {
 };
 
 template <int RULE>
-__device__ __forceinline__ void rule_step(const Hyp& h, float x0, float s0,
-                                          float dv, float& step,
+__device__ __forceinline__ void rule_step(const Hyp& h, int c, float x0,
+                                          float s0, float dv, float& step,
                                           float& s_new) {
   // __fmaf_rn where the reference's XLA contracts a product into the
   // add that follows it (ROADMAP C13; tests/test_torch_fma.py pins
   // each): its product is neither rounded nor flushed.
   if (RULE == kMomentum) {
-    const float sm = __fmaf_rn(h.m, s0, __fmul_rn(h.one_m, dv));
+    const float sm = c == h.swap_col
+                         ? __fmaf_rn(h.one_m, dv, __fmul_rn(h.m, s0))
+                         : __fmaf_rn(h.m, s0, __fmul_rn(h.one_m, dv));
     step = sm;
     s_new = sm;
   } else if (RULE == kAdaGrad) {
@@ -173,7 +180,7 @@ __device__ void apply_segment(const Rows& a, int64_t j, int lane) {
       const int64_t pos = a.order[p];
       const float dv = pos < a.k_delta ? a.delta[pos * a.d_cols + c] : 0.f;
       float step, s_new;
-      rule_step<RULE>(a.hyp, x0, s0, dv, step, s_new);
+      rule_step<RULE>(a.hyp, c, x0, s0, dv, step, s_new);
       acc = __fsub_rn(acc, step);
       s_last = s_new;
     }
@@ -262,7 +269,7 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-Hyp make_hyp(float m, float lr, float rho, float lam) {
+Hyp make_hyp(float m, float lr, float rho, float lam, int swap_col) {
   Hyp h;
   h.m = m;
   h.one_m = 1.0f - m;
@@ -270,6 +277,7 @@ Hyp make_hyp(float m, float lr, float rho, float lam) {
   h.safe_lr = fmaxf(lr, 1e-12f);
   h.rho = rho;
   h.lam = lam;
+  h.swap_col = swap_col;
   return h;
 }
 
@@ -317,11 +325,11 @@ extern "C" cudaError_t mv_row_rule_apply(
     int rule, float* data, int64_t rows, int64_t stride, float* state,
     int workers, int worker, const int32_t* keys, const int64_t* order,
     int64_t n, const float* delta, int64_t k_delta, int d_cols, float m,
-    float lr, float rho, float lam, cudaStream_t stream) {
+    float lr, float rho, float lam, int swap_col, cudaStream_t stream) {
   if (n <= 0 || d_cols <= 0) return cudaSuccess;
   Rows a{data, rows, stride, state, workers, worker, nullptr, keys, order,
          n, delta, k_delta, d_cols, false, nullptr, nullptr, 0,
-         make_hyp(m, lr, rho, lam)};
+         make_hyp(m, lr, rho, lam, swap_col)};
   switch (rule) {
     case kMomentum: return launch_rule<kMomentum>(a, stream);
     case kAdaGrad: return launch_rule<kAdaGrad>(a, stream);
@@ -340,7 +348,7 @@ extern "C" cudaError_t mv_rows_apply_gather(
     int rule, float* data, int64_t rows, int64_t stride, float* state,
     int workers, int worker, const int32_t* ids, const int32_t* keys,
     const int64_t* order, int64_t n, const float* delta, int64_t k_delta,
-    int d_cols, float m, float lr, float rho, float lam,
+    int d_cols, float m, float lr, float rho, float lam, int swap_col,
     const int32_t* get_ids, int64_t n_get, float* out, int n_col,
     int distinct, int32_t* slot_keys, float* slot_vals, int64_t cap_a,
     cudaStream_t stream) {
@@ -355,7 +363,7 @@ extern "C" cudaError_t mv_rows_apply_gather(
                      reinterpret_cast<uintptr_t>(slot_vals) % 16 == 0)));
   Rows a{data, rows, stride, state, workers, worker, ids, keys, order,
          d_cols > 0 ? n : 0, delta, k_delta, d_cols, distinct != 0,
-         slot_keys, slot_vals, cap_a, make_hyp(m, lr, rho, lam)};
+         slot_keys, slot_vals, cap_a, make_hyp(m, lr, rho, lam, swap_col)};
   Gather g{get_ids, n_col > 0 ? n_get : 0, out, n_col};
   switch (rule) {
     case kDefault:

@@ -41,6 +41,13 @@ def flush_(x: torch.Tensor) -> torch.Tensor:
     return x
 
 
+def plus_zero(x: torch.Tensor) -> torch.Tensor:
+    """``x`` with every float32 zero and subnormal replaced by +0 (one
+    pass): what ``x + (+0)`` gives under denormals-are-zero, and ``x -
+    z`` for a zero ``z`` of ``x``'s sign."""
+    return F.hardshrink(x, SUBNORMAL_MAX)
+
+
 def add_(data: torch.Tensor, delta: torch.Tensor,
          sign: int = 1) -> torch.Tensor:
     """``data += sign * delta`` (``sign`` 1 or -1) in place, flushed as

@@ -9,11 +9,12 @@ Keys follow JAX's index rules: an id in [-R, -1] wraps to ``id + R``,
 an id in [0, R) stays, every other id becomes R and sorts last. Returns
 the sorted keys and each key's flat position, both int32.
 
-On a CUDA tensor ``key_sort`` launches the kernels (``csrc/
+On a CUDA tensor ``key_sort`` launches the kernel (``csrc/
 key_sort.cu``: a stable radix sort over ``key_bits(R)`` bits in passes
-of at most 10; no host sync) or raises; on a CPU tensor it runs the
-plain version, ``torch.sort(stable=True)``. ``key_sort.launches``
-counts the wrapper calls that launched it.
+of at most 10, ONE cooperative launch whose phases a grid-wide barrier
+splits; no host sync) or raises; on a CPU tensor it runs the plain
+version, ``torch.sort(stable=True)``. ``key_sort.launches`` counts its
+launches.
 """
 
 from __future__ import annotations
@@ -25,9 +26,11 @@ import torch
 from . import build
 from ._launch import is_plain, require, stream_of
 
-#: Keys a block of the kernels sorts (``kTile``), and the widest digit.
+#: Keys a tile of the kernel (``kTile``), and the widest digit.
 TILE = 2048
 MAX_DIGIT = 10
+#: Kernels a ``key_sort`` call launches on the card.
+KERNELS_A_CALL = 1
 
 
 def key_bits(rows: int) -> int:
@@ -67,16 +70,17 @@ def key_sort(ids: torch.Tensor, rows: int
     order = torch.empty(n, dtype=torch.int32, device=flat.device)
     if n == 0:
         return keys, order
-    blocks = -(-n // TILE)
-    bins = 1 << MAX_DIGIT
-    scratch = torch.empty(2 * n + bins * (blocks + 1), dtype=torch.int32,
-                          device=flat.device)
+    bits = key_bits(rows)
+    tiles = -(-n // TILE)
+    hist = -(-bits // MAX_DIGIT) * (tiles << MAX_DIGIT)
+    scratch = torch.empty(2 * n + hist + (1 << MAX_DIGIT),
+                          dtype=torch.int32, device=flat.device)
     lib = build.library()
     build.check(lib.mv_key_sort(
-        flat.data_ptr(), n, rows, key_bits(rows), keys.data_ptr(),
-        order.data_ptr(), scratch[2 * n:].data_ptr(),
-        scratch[2 * n + bins * blocks:].data_ptr(), scratch.data_ptr(),
-        scratch[n:].data_ptr(), stream_of(flat)), "key_sort")
+        flat.data_ptr(), n, rows, bits, keys.data_ptr(), order.data_ptr(),
+        scratch[2 * n:].data_ptr(), scratch[2 * n + hist:].data_ptr(),
+        scratch.data_ptr(), scratch[n:].data_ptr(), stream_of(flat)),
+        "key_sort")
     key_sort.launches += 1
     return keys, order
 

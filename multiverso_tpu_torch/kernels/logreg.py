@@ -44,7 +44,7 @@ import torch
 
 from . import build
 from ._launch import is_plain, require, stream_of
-from .flush import add_rows
+from .flush import add_rows, plus_zero
 from .flush import flush as f
 from .keysort import key_sort
 from .objective import dot
@@ -273,6 +273,27 @@ def touched_rows(keys: torch.Tensor, rows: int) -> Touched:
     return Touched(uniq, counts, occ, starts)
 
 
+def settle_untouched(table: Table, touched: torch.Tensor,
+                     plus: bool) -> None:
+    """What the reference's sparse step does to the rows its batch does
+    not touch, in place on ``w`` or FTRL's ``(z, n)``: it subtracts
+    (FTRL: adds) a dense update whose rows there are zeros, and that
+    flushes a subnormal. Under a regularizer and in FTRL's state that
+    zero is of the element's own sign or +0, so every zero and subnormal
+    becomes +0 (``plus``); else each flushes to a zero of its sign.
+    ``touched`` holds the touched rows (any order, repeats and the
+    sentinel R allowed); their rows are the step's and stay as they
+    are. Needed only where state came in from outside the step (a load,
+    a pull): the step's own results are flushed already."""
+    tensors = (table,) if isinstance(table, torch.Tensor) else table
+    R = tensors[0].shape[0]
+    hit = torch.zeros(R + 1, dtype=torch.bool, device=touched.device)
+    hit[touched] = True
+    keep = hit[:R, None]
+    for x in tensors:
+        torch.where(keep, x, plus_zero(x) if plus else f(x), out=x)
+
+
 def sparse_lr_apply_plain(table: Table, touched: Touched,
                           values: torch.Tensor, diff: torch.Tensor,
                           count: torch.Tensor, reg: int, coef: float,
@@ -326,7 +347,8 @@ def sparse_lr_apply(table: Table, keys: torch.Tensor, values: torch.Tensor,
                     reg: int = REG_NONE, coef: float = 0.0,
                     scale: float = 1.0, ftrl: Optional[Ftrl] = None,
                     delta_rows: bool = False,
-                    push: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                    push: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                    settle: Optional[bool] = None
                     ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
     """K12: the update of the rows ``keys`` touches, in place. ``table``
     is ``w [R, C]`` (sgd: ``w -= scale * g``) or ``(z, n)`` with
@@ -336,7 +358,9 @@ def sparse_lr_apply(table: Table, keys: torch.Tensor, values: torch.Tensor,
     at those rows. ``delta_rows`` (sgd) asks for the touched rows and
     their ``scale * g``: returns (rows int64 [B*K]: the U touched rows
     ascending, then R; delta [B*K, C]: the first U rows theirs), else
-    (None, None). On the card the ids are sorted by K20 and nothing
+    (None, None). ``settle`` (``plus``, not None) then settles the
+    untouched rows (``settle_untouched``) with the touched rows the
+    call already has. On the card the ids are sorted by K20 and nothing
     waits for the card: the call makes no host sync."""
     first = table if ftrl is None else table[0]
     R = first.shape[0]
@@ -346,6 +370,8 @@ def sparse_lr_apply(table: Table, keys: torch.Tensor, values: torch.Tensor,
         delta = sparse_lr_apply_plain(table, touched, values, diff, count,
                                       reg, coef, scale, ftrl, want_rows,
                                       push)
+        if settle is not None:
+            settle_untouched(table, touched.rows, settle)
         if not want_rows:
             return None, None
         n, U = keys.numel(), touched.rows.numel()
@@ -401,6 +427,8 @@ def sparse_lr_apply(table: Table, keys: torch.Tensor, values: torch.Tensor,
         _ptr(delta_end), _ptr(tile_ends), _ptr(rows), _ptr(delta),
         stream_of(w)), "sparse_lr_apply")
     sparse_lr_apply.launches += 1
+    if settle is not None:
+        settle_untouched(table, sorted_keys, settle)
     return rows, delta
 
 

@@ -13,11 +13,13 @@ sequential sum — then one division by n for the mean, written to
 of an allreduce.
 
 On a CUDA tensor the wrapper launches the kernel (``csrc/
-mesh_reduce.cu``: one thread an element column, float4 vectors,
-correctly rounded adds and division — bound by bytes, ``(n + copies) *
-M * 4``) or raises; on a CPU tensor it runs the plain version, which
-takes the same operations in the same order, so the two agree bit for
-bit. ``mesh_allreduce.launches`` counts kernel launches.
+mesh_reduce.cu``: a thread owns float4 element columns, n = 2, 4 and 8
+instantiated with every slot's loads of a thread's columns in flight
+before its first add, streaming loads and stores, a block a tile of
+columns; correctly rounded adds and division — bound by bytes,
+``(n + copies) * M * 4``) or raises; on a CPU tensor it runs the plain
+version, which takes the same operations in the same order, so the two
+agree bit for bit. ``mesh_allreduce.launches`` counts kernel launches.
 """
 
 from __future__ import annotations

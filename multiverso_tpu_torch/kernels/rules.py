@@ -76,21 +76,45 @@ def inv_sqrt(x: torch.Tensor) -> torch.Tensor:
     return scalar(1, x) / root
 
 
+#: The widest row (storage columns) at which the reference's momentum row
+#: programs fuse the other product in the last column.
+MOMENTUM_SWAP_WIDTH = 33
+
+
+def momentum_swap_col(width: int) -> int:
+    """The column of a momentum row update over rows of ``width`` storage
+    columns where the reference's ``apply_rows`` and ``apply_rows_gather``
+    fuse ``(1 - m) * d`` into the add (``m * s`` rounded), not ``m * s``:
+    the last one at widths up to 33, none (-1) above. Read from the
+    programs' machine code (ROADMAP C13): XLA's CPU backend unrolls the
+    column loop of rows up to 33 floats, and the last column's fused
+    multiply-add is shared with the branch of an out-of-range id, whose
+    gathered state is zero; wider rows run a vector loop that fuses
+    ``m * s`` in every column."""
+    return width - 1 if width <= MOMENTUM_SWAP_WIDTH else -1
+
+
 def rule_step(rule: str, hyp, x0: torch.Tensor, s0: torch.Tensor,
-              dv: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+              dv: torch.Tensor, swap_col: int = -1
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(step subtracted from the table, new state) of a stateful rule's
     row update, elementwise, in the reference's expression order, every
     operation flushed on its inputs and its result (``flush``), and a
     product fused into the add that follows it (``fma``) exactly where
     the reference's ``apply_rows`` contracts it (ROADMAP C13, pinned by
-    ``tests/test_torch_fma.py``): momentum's ``m * s``, AdaGrad's
-    ``g * g`` and DCASGD's compensation term."""
+    ``tests/test_torch_fma.py``): momentum's ``m * s`` (``(1 - m) * d``
+    in column ``swap_col`` of the last axis, ``momentum_swap_col``),
+    AdaGrad's ``g * g`` and DCASGD's compensation term."""
     m, lr, rho, lam = (np.float32(v) for v in hyp)
     f = flush
     x0, s0, dv = f(x0), f(s0), f(dv)
     if rule == "momentum":
-        smooth = fma(scalar(m, dv), s0,
-                     f(scalar(np.float32(1) - m, dv) * dv))
+        one_m = scalar(np.float32(1) - m, dv)
+        smooth = fma(scalar(m, dv), s0, f(one_m * dv))
+        if 0 <= swap_col < dv.shape[-1]:
+            c = slice(swap_col, swap_col + 1)
+            smooth[..., c] = fma(one_m, dv[..., c],
+                                 f(scalar(m, dv) * s0[..., c]))
         return smooth, smooth
     grad = f(dv / scalar(safe_lr(lr), dv))
     if rule == "adagrad":
@@ -150,7 +174,8 @@ def row_rule_apply_plain(rule: str, data: torch.Tensor,
     rows_state = _state_rows(rule, state, worker_id)
     s0 = torch.zeros_like(x0) if rows_state is None else torch.where(
         ok[:, None], rows_state.index_select(0, safe)[:, :d], zero)
-    step, s_new = rule_step(rule, hyp, x0, s0, dv)
+    swap = momentum_swap_col(data.shape[1]) if rule == "momentum" else -1
+    step, s_new = rule_step(rule, hyp, x0, s0, dv, swap)
     add_rows(data[:, :d], flat[ok], -step[ok])
     if rows_state is None:
         return
@@ -187,10 +212,11 @@ def _launch_args(rule: str, data, state, ids, delta, hyp, worker_id):
             raise ValueError(f"state {tuple(state.shape)} does not match "
                              f"the table {tuple(data.shape)}")
         workers = 1 if rule == "momentum" else state.shape[0]
+    swap = momentum_swap_col(data.shape[1]) if rule == "momentum" else -1
     return (RULE_CODES[rule], data.data_ptr(), data.shape[0],
             data.stride(0), None if state is None else state.data_ptr(),
             workers, min(int(worker_id), 2 ** 31 - 1)), \
-        (m, lr, rho, lam)
+        (m, lr, rho, lam, swap)
 
 
 def row_rule_apply(rule: str, data: torch.Tensor, state: torch.Tensor,
@@ -205,12 +231,12 @@ def row_rule_apply(rule: str, data: torch.Tensor, state: torch.Tensor,
     if is_plain(data):
         row_rule_apply_plain(rule, data, state, ids, delta, hyp, worker_id)
         return
-    head, hyp4 = _launch_args(rule, data, state, ids, delta, hyp, worker_id)
+    head, hyps = _launch_args(rule, data, state, ids, delta, hyp, worker_id)
     keys, order = segments(ids, data.shape[0])
     lib = build.library()
     build.check(lib.mv_row_rule_apply(
         *head, keys.data_ptr(), order.data_ptr(), keys.numel(),
-        delta.data_ptr(), delta.shape[0], delta.shape[1], *hyp4,
+        delta.data_ptr(), delta.shape[0], delta.shape[1], *hyps,
         stream_of(data)), "row_rule_apply")
     row_rule_apply.launches += 1
 
@@ -258,7 +284,7 @@ def rows_apply_gather(rule: str, data: torch.Tensor,
         return rows_apply_gather_plain(rule, data, state, ids, delta, hyp,
                                        worker_id, get_ids, n_col,
                                        distinct and stateless)
-    head, hyp4 = _launch_args(rule, data, state, ids, delta, hyp, worker_id)
+    head, hyps = _launch_args(rule, data, state, ids, delta, hyp, worker_id)
     require(get_ids, "get_ids", torch.int32, data.device)
     keys = order = slot_keys = slot_vals = None
     n, cap_a, one_writer = ids.numel(), 0, stateless and distinct
@@ -275,7 +301,7 @@ def rows_apply_gather(rule: str, data: torch.Tensor,
     build.check(lib.mv_rows_apply_gather(
         *head, ids.data_ptr(), None if keys is None else keys.data_ptr(),
         None if order is None else order.data_ptr(), n,
-        delta.data_ptr(), delta.shape[0], delta.shape[1], *hyp4,
+        delta.data_ptr(), delta.shape[0], delta.shape[1], *hyps,
         get_ids.data_ptr(), get_ids.numel(), out.data_ptr(), n_col,
         int(one_writer), None if slot_keys is None else slot_keys.data_ptr(),
         None if slot_vals is None else slot_vals.data_ptr(), cap_a,

@@ -57,6 +57,16 @@ def _args(batch: Batch, device: torch.device):
             torch.from_numpy(batch.values).to(device), labels, weights)
 
 
+def _reg_keeps_plus(config: Configure) -> bool:
+    """Whether the reference's untouched rows settle to +0, not to a
+    flushed zero of their sign (``lrk.settle_untouched``): the dense
+    update there is ``+0 * reg(w)``, a zero of ``w``'s sign (times the
+    coefficient's), and ``w - z`` for a zero ``z`` of ``w``'s sign is
+    +0."""
+    return config.regular_type in ("L1", "L2") and \
+        not np.signbit(np.float32(config.regular_coef))
+
+
 def _read_rows(stream, shape) -> np.ndarray:
     raw = stream.read(int(np.prod(shape)) * 4)
     return np.frombuffer(raw, np.float32).reshape(shape)
@@ -76,13 +86,19 @@ class LocalModel:
         self._scale_lr = config.updater_type in ("sgd", "ftrl")
         self._predict = make_predict(config)
         self.update_count = 0
+        # Weights came in from outside the step (``load_weights``):
+        # the next sparse step settles its untouched rows.
+        self._settle = False
 
     def update(self, batch: Batch) -> float:
         lr = learning_rate(self.config, self.update_count)
         args = _args(batch, self.device)
         if self.config.sparse:
+            settle = _reg_keeps_plus(self.config) if self._settle else None
             loss_sum = self._step(self._w, *args,
-                                  scale=lr if self._scale_lr else 1.0)[0]
+                                  scale=lr if self._scale_lr else 1.0,
+                                  settle=settle)[0]
+            self._settle = False
         else:
             loss_sum, _, grad = self._step(self._w, *args)
             self._w = self._w - (grad * lr if self._scale_lr else grad)
@@ -100,6 +116,7 @@ class LocalModel:
     def load_weights(self, w: np.ndarray) -> None:
         self._w = torch.from_numpy(np.array(w, np.float32).reshape(
             tuple(self._w.shape))).to(self.device)
+        self._settle = True
 
     def store(self, stream) -> None:
         stream.write(self.weights.astype(np.float32).tobytes())
@@ -140,6 +157,11 @@ class PSModel:
         self._predict = make_predict(config)
         self.update_count = 0
         self._batch_count = 0
+        # A pull's reply is a copy of the server's rows, which its sgd
+        # rule has flushed but whose zeros may be -0: under a
+        # regularizer the next sparse step settles its untouched rows
+        # to +0 (``lrk.settle_untouched``).
+        self._settle = False
         self._pull()
 
     # -- pull (ref: ps_model.cpp:172-182) --
@@ -150,6 +172,7 @@ class PSModel:
             buf = self._w.cpu().numpy()
             self._table.get(out=buf)
             self._w = torch.from_numpy(buf).to(self.device)
+            self._settle = _reg_keeps_plus(self.config)
         else:
             self._w = self._table.get_device().reshape(self._w.shape)
 
@@ -164,7 +187,9 @@ class PSModel:
             CHECK(int(batch.keys.min()) >= 0,
                   "row ids out of range [0, num_row)")
             loss_sum, _, rows, delta = self._step(
-                self._w, *args, scale=scale, delta_rows=True)
+                self._w, *args, scale=scale, delta_rows=True,
+                settle=True if self._settle else None)
+            self._settle = False
             # Sorted unique rows, on the host (one copy from the card):
             # the server's engine finds them ascending and K3 adds them
             # with one writer a row, no sort.
@@ -234,6 +259,10 @@ class FTRLModel:
             else make_dense_step(config)
         self._predict = make_predict(config, self._ftrl)
         self.update_count = 0
+        # z and n came in from outside the step (a load, a pull): the
+        # next sparse step settles its untouched rows to +0 (z + (g -
+        # sigma*w) and n + g*g add +0 there).
+        self._settle = False
         self._use_ps = use_ps
         if use_ps:
             size = int(np.prod(shape))
@@ -251,7 +280,9 @@ class FTRLModel:
                                     device=self.device),
                         torch.zeros(shape, dtype=torch.float32,
                                     device=self.device))
-            loss_sum = self._step((self._z, self._n), *args, push=push)[0]
+            loss_sum = self._step((self._z, self._n), *args, push=push,
+                                  settle=True if self._settle else None)[0]
+            self._settle = False
         else:
             z, n = self._z, self._n
             w = ftrl_weights(z, n, self._ftrl)
@@ -269,6 +300,7 @@ class FTRLModel:
             if self._batch_count % self.config.sync_frequency == 0:
                 self._z = self._z_table.get_device().reshape(shape)
                 self._n = self._n_table.get_device().reshape(shape)
+                self._settle = True
         self.update_count += 1
         return float(loss_sum)
 
@@ -291,6 +323,7 @@ class FTRLModel:
             shape)).to(self.device)
         self._n = torch.from_numpy(np.array(n, np.float32).reshape(
             shape)).to(self.device)
+        self._settle = True
 
     def store(self, stream) -> None:
         stream.write(self._z.cpu().numpy().tobytes())

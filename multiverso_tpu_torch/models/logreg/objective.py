@@ -89,14 +89,15 @@ def make_dense_step(config: Configure) -> Callable:
 
 class SparseStep:
     """The sparse step on K11 and K12, applied in place:
-    ``(table, keys, values, labels, weights, scale=, delta_rows=, push=)
-    -> (loss_sum, correct, touched rows, delta rows or None)``.
+    ``(table, keys, values, labels, weights, scale=, delta_rows=, push=,
+    settle=) -> (loss_sum, correct, touched rows, delta rows or None)``.
     ``table`` is ``w [input_size + 1, C]`` (last row = padding) with
     ``w -= scale * grad`` on the touched rows, or ``(z, n)`` for FTRL
     (``ftrl`` given). ``delta_rows`` returns the touched rows ascending
     as a host tensor (the PS push's ids: one copy from the card) and
     their ``scale * grad`` rows on the table's device, else None for
-    both; ``push`` takes FTRL's ``(g - sigma*w, g^2)``."""
+    both; ``push`` takes FTRL's ``(g - sigma*w, g^2)``; ``settle`` (not
+    None) also settles the untouched rows (``lrk.settle_untouched``)."""
 
     def __init__(self, config: Configure, ftrl: Optional[lrk.Ftrl] = None):
         self.act = _act_code(config.objective_type)
@@ -105,14 +106,16 @@ class SparseStep:
         self.ftrl = ftrl
 
     def __call__(self, table, keys, values, labels, weights,
-                 scale: float = 1.0, delta_rows: bool = False, push=None):
+                 scale: float = 1.0, delta_rows: bool = False, push=None,
+                 settle: Optional[bool] = None):
         _, diff, loss, hit = lrk.sparse_lr_forward(
             table, keys, values, labels, weights, self.act, self.ftrl)
         count = torch.clamp(torch.sum(weights > 0), min=1).to(
             torch.float32).reshape(1)
         rows, delta = lrk.sparse_lr_apply(
             table, keys, values, diff, count, reg=self.reg, coef=self.coef,
-            scale=scale, ftrl=self.ftrl, delta_rows=delta_rows, push=push)
+            scale=scale, ftrl=self.ftrl, delta_rows=delta_rows, push=push,
+            settle=settle)
         if rows is not None:
             # The touched rows, then the sentinel R: cut at R on the host.
             rows = rows.cpu()

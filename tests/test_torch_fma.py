@@ -19,9 +19,13 @@ are inexact):
 The port forms the same: ``kernels/flush.py`` ``fma`` (exact, on both
 devices) in the plain versions and the dense rules, ``__fmaf_rn`` in
 K13/K14 on the card. Rows of 50 and 128 floats (the table benchmark's
-and the word2vec tables' widths). Not pinned (ROADMAP C13): under
-momentum's row programs at widths of 16 floats or fewer the reference
-fuses the OTHER product, ``(1 - m) * d``, in the last column only.
+and the word2vec tables' widths), and the narrow rows 1, 3, 5, 8 and 16:
+there momentum's row programs fuse the OTHER product, ``(1 - m) * d``,
+in the last column (``rules.momentum_swap_col``: XLA's CPU backend
+unrolls the column loop of rows up to 33 floats and shares the last
+column's fused multiply-add with the out-of-range branch; ROADMAP C13).
+Both need a host with FMA instructions: without them the reference
+rounds every product.
 
 AdaGrad's step goes through the reference's ``rsqrt``, which XLA's CPU
 code generation approximates; the port takes ``1 / sqrt`` correctly
@@ -206,10 +210,18 @@ def _ids(kind: str, rng) -> np.ndarray:
     return ids
 
 
+#: (rule, row width): every rule at the wide rows; momentum (whose last
+#: column swaps its fused product) and DCASGD at the narrow ones. AdaGrad
+#: stays at the wide rows: where its repeated steps cancel to an exact
+#: zero in the reference (width 8, repeats, edge), the port's correctly
+#: rounded ``1 / sqrt`` leaves a residue (ROADMAP C10).
+ROW_CASES = [(rule, w) for rule in STATEFUL for w in (50, 128)] + [
+    (rule, w) for rule in ("momentum", "dcasgd") for w in (1, 3, 5, 8, 16)]
+
+
 @pytest.mark.parametrize("kind", ["normal", "edge"])
 @pytest.mark.parametrize("ids_kind", ["ascending", "repeats"])
-@pytest.mark.parametrize("width", [50, 128])
-@pytest.mark.parametrize("rule", STATEFUL)
+@pytest.mark.parametrize("rule,width", ROW_CASES)
 def test_apply_rows_contracts_as_reference(rule, width, ids_kind, kind):
     rng = np.random.default_rng(width + len(kind) + len(ids_kind))
     got, want = _engines(rule, width, rng, kind)
@@ -234,8 +246,7 @@ def test_apply_rows_contracts_as_reference(rule, width, ids_kind, kind):
 
 
 @pytest.mark.parametrize("kind", ["normal", "edge"])
-@pytest.mark.parametrize("width", [50, 128])
-@pytest.mark.parametrize("rule", STATEFUL)
+@pytest.mark.parametrize("rule,width", ROW_CASES)
 def test_apply_rows_gather_contracts_as_reference(rule, width, kind):
     rng = np.random.default_rng(3 * width + len(kind))
     got, want = _engines(rule, width, rng, kind)
