@@ -86,9 +86,11 @@ Phases, each fatal on failure:
    Zipf-skewed categorical ones with value 1; labels from a planted
    weight vector), in batches of 4096: K11 and K12 against their plain
    versions at the first batch's shapes (K11 within a tolerance, K12 bit
-   for bit on values and diffs rounded to a grid where every sum is
-   exact, the same bits on two launches, and no host sync in the call
-   under ``torch.cuda.set_sync_debug_mode("error")``; also softmax at
+   for bit against its plain version on the CPU, which sums as the
+   reference does, the same bits on two launches, no host sync in the
+   call under ``torch.cuda.set_sync_debug_mode("error")``, and its
+   settle pass: a written -0 settled to +0 at the next step, a load's
+   zeros and subnormals at the step after it; also softmax at
    C=10, L1 and keys repeated within a sample), K20 ``key_sort`` (K12's
    id sort) bit for bit against ``torch.sort(stable=True)`` on the
    batch's keys, all-equal keys, all-dropped keys and a table of
@@ -201,7 +203,9 @@ per-pair block step), K12 with K20 at ``lr_sparse_local``'s and K19
 in both forms at ``ma_mesh4``'s, each launch by launch (no counted
 runs, no result line; NAMES keeps the kernels named, e.g.
 ``pair_offset_grad,sparse_lr_apply``; ``key_sort`` is K20 alone;
-``mesh_allreduce,key_sort`` builds no corpus).
+``rows_apply_gather`` phase 10a's table kernel checks;
+``pairlist_ns_grad`` K9's forms beside the host-batch paths'; these,
+``mesh_allreduce`` and ``sparse_lr_apply`` build no corpus).
 ``--cpu-rehearsal`` runs
 phases 2 and 4-12 at a tiny size
 on the CPU with the plain versions (no kernels, no timing, no result
@@ -382,7 +386,8 @@ def time_ms(torch, fn, reps: int = REPS, only: str = "") -> float:
         fn()
     torch.cuda.synchronize()
     # A profiler session now and then records no CUDA activity at all
-    # (seen once in ~70 sessions of one run); trace such a call again.
+    # (seen once in ~70 sessions of one run); trace such a call again,
+    # and after three such sessions time it with CUDA events.
     for attempt in range(3):
         with tp.profile(activities=[tp.ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
@@ -397,7 +402,7 @@ def time_ms(torch, fn, reps: int = REPS, only: str = "") -> float:
             return total_us / reps / 1e3
         log(f"[time] the profiler recorded no device time (trace "
             f"{attempt + 1} of 3)")
-    raise RuntimeError("the profiler recorded no device time")
+    return untraced_ms(torch, fn, reps, only)
 
 
 def time_split(torch, fn, reps: int = REPS):
@@ -434,7 +439,17 @@ def time_split(torch, fn, reps: int = REPS):
             return split
         log(f"[time] the profiler recorded no device time (trace "
             f"{attempt + 1} of 3)")
-    raise RuntimeError("the profiler recorded no device time")
+    return [("whole call, untraced", untraced_ms(torch, fn, reps))]
+
+
+def untraced_ms(torch, fn, reps: int, only: str = "") -> float:
+    """``time_queued_ms`` of ``fn`` where three profiler sessions in a
+    row recorded nothing (seen in two whole runs): the whole call, its
+    launch gaps counted, logged as such."""
+    ms = time_queued_ms(torch, fn, reps)
+    log(f"[time] {ms:.4f} ms a call from queued CUDA events instead, the "
+        f"whole call" + (f", not only the {only!r} kernels" if only else ""))
+    return ms
 
 
 def log_split(name: str, path: str, split) -> str:
@@ -1303,7 +1318,7 @@ def step_result(torch, kernel, plain, args, n_bytes: float, flops: float,
         f"(launches included); the same bits after the timed calls: "
         f"{'yes' if bits else 'NO'}")
     extra = ""
-    if name in ("banded_cbow_grad", "hs_cbow_grad") and span_cbow():
+    if name in ("banded_cbow_grad", "hs_cbow_grad"):
         # One span kernel and the one-warp sum of its partials: the band
         # pass of the earlier form must not show.
         single = not any("band_pass" in key for key, _ in split)
@@ -1328,21 +1343,11 @@ def step_result(torch, kernel, plain, args, n_bytes: float, flops: float,
     return result
 
 
-def span_cbow() -> bool:
-    """Whether the tree's K5 and K7 are span kernels (an earlier tree's
-    launch a band pass after them)."""
-    from multiverso_tpu_torch.kernels import cbow
-    return hasattr(cbow, "span_geometry")
-
-
 def check_pair_inplace(torch, args, got, path: str) -> bool:
     """K8's in-place form (the PS path's) on copies of ``args``' rows
     against the delta form ``got`` added with torch's three ``+=``: the
-    same bits. Times the in-place form launch by launch. True where the
-    port has no in-place form (an earlier tree)."""
+    same bits. Times the in-place form launch by launch."""
     from multiverso_tpu_torch.kernels import pair
-    if not hasattr(pair, "pair_offset_grad_"):
-        return True
     v, u, m, K, scale = args
     C = v.shape[0]
     vv, uu = v.clone(), u.clone()
@@ -1831,6 +1836,53 @@ def check_hb_kernels(torch, model, batch, path: str, name: str,
     return report(results, card, path)
 
 
+def check_k9_forms(torch, device):
+    """K9's forms beside the path's (float4 columns, K <= 8): 4,096 pairs
+    in blocks of 8 over random tables, skip-gram and CBOW (2W = 10, some
+    window slots masked, some pairs masked), in the register form at D =
+    128 and K = 5 and 8 (its two negative counts), D = 50 (two float
+    columns a lane), D = 101 and 70 (four float columns a lane, K 5 and
+    7), and in the general form at D = 300 (wider than the register form
+    holds) and K = 12 (more negatives than it holds), each against the
+    plain version at phase 8's tolerance. Returns (ok, text)."""
+    from multiverso_tpu_torch.kernels import pairlist
+    gen = torch.Generator(device=device)
+    gen.manual_seed(9)
+    B, nb, rows = 4096, 8, 5000
+    bad, cases = [], 0
+    shapes = ((128, 5), (128, 8), (50, 5), (101, 5), (70, 7), (300, 5),
+              (128, 12))
+    for D, K in shapes:
+        ein = torch.randn((rows, D), generator=gen, device=device) * 0.1
+        eout = torch.randn((rows, D), generator=gen, device=device) * 0.1
+        tgt = torch.randint(0, rows, (B,), generator=gen, device=device,
+                            dtype=torch.int32)
+        neg = torch.randint(0, rows, (B // nb, K), generator=gen,
+                            device=device, dtype=torch.int32)
+        pm = (torch.rand(B, generator=gen, device=device) > 0.1).float()
+        for cbow in (False, True):
+            if cbow:
+                in_idx = torch.randint(0, rows, (B, 10), generator=gen,
+                                       device=device, dtype=torch.int32)
+                wm = (torch.rand((B, 10), generator=gen, device=device)
+                      > 0.2).float()
+            else:
+                in_idx = torch.randint(0, rows, (B,), generator=gen,
+                                       device=device, dtype=torch.int32)
+                wm = None
+            args = (ein, eout, in_idx, wm, tgt, neg, pm, -0.025)
+            err, ok, _ = compare_step(pairlist.pairlist_ns_grad(*args),
+                                      pairlist.pairlist_ns_grad_plain(*args))
+            cases += 1
+            if not ok:
+                bad.append(f"D={D} K={K} {'cbow' if cbow else 'sg'} "
+                           f"({err:g})")
+    return not bad, (f"other forms ({cases} calls: (D, K) "
+                     f"{', '.join(map(str, shapes))}, skip-gram and CBOW) "
+                     f"within the tolerance: "
+                     + ("yes" if not bad else f"NO ({'; '.join(bad)})"))
+
+
 def small_hb_run(torch, mv, device, workdir: str, flags: dict, ps: bool):
     """The topic corpus, 8 batches of 128, negatives from
     a CPU generator (local) or numpy (PS): (loss, pairs, input rows,
@@ -1922,6 +1974,14 @@ def run_hostbatch_phase(torch, np, mv, device, dictionary, tokenized,
                     mv.shutdown()
             del model, batches
             free(torch, device)
+    if device.type == "cuda":
+        forms_ok, forms_text = check_k9_forms(torch, device)
+        log(f"[kernel pairlist_ns_grad] {forms_text}")
+        first = next(r for r in results if r["name"] == "pairlist_ns_grad")
+        first.update(ok=first["ok"] and forms_ok,
+                     tol=f"{first['tol']}; {forms_text}")
+        if not forms_ok:
+            raise AssertionError(f"pairlist_ns_grad: {forms_text}")
     for mode, flags, *_ in HB_MODES:
         for ps in (False, True):
             compare_small(np, f"hb_{'ps' if ps else 'local'}_{mode}, 8 "
@@ -2020,32 +2080,6 @@ def lr_config(extra: dict, input_size: int = LR_FEATURES,
                             **extra))
 
 
-def lr_grid(torch, values, diff, keys, rows: int, count: float):
-    """``values`` and ``diff`` rounded to grids on which every partial sum
-    K12 forms — ``values * diff / count`` summed per touched row — is
-    exact in float32 (``count`` a power of two): values to 2^-2, diff to
-    the finest 2^-q that keeps each row's mass below 2^(24 - 2 - q) times
-    its quantum, with 3 bits of margin. K12 and its plain version then
-    agree bit for bit whatever order they sum in."""
-    from multiverso_tpu_torch.kernels import logreg as lrk
-    vg = torch.round(values * 4) / 4
-    t = lrk.touched_rows(keys, rows)
-    pos = t.occ.to(torch.int64)
-    seg = torch.repeat_interleave(torch.arange(t.rows.numel(),
-                                               device=keys.device),
-                                  t.counts)
-    mass = torch.zeros(t.rows.numel(), dtype=torch.float64,
-                       device=keys.device)
-    mass.index_add_(0, seg, (vg.reshape(-1)[pos].abs().double()
-                             * diff.abs().amax(1).double()[
-                                 pos // values.shape[1]]) / count)
-    top = max(float(mass.max()), 2.0 ** -60)
-    lq = math.log2(count)
-    q = int(math.floor(24 - 2 - lq - 3 - math.log2(top) - 1))
-    q = max(min(q, 20), 0)
-    return vg, torch.round(diff * 2.0 ** q) / 2.0 ** q
-
-
 def lr_tables(torch, R: int, C: int, ftrl, gen, device):
     """Random state of the main path's height: ``w`` or FTRL's ``(z, n)``
     (|z| beyond lambda1 often enough that weights are nonzero)."""
@@ -2068,10 +2102,14 @@ def lr_case(torch, np, tag: str, config, batch, gen, device, ps: bool,
     random state of ``config``'s model (``ps``: K12 also returns the
     push — the delta rows, or FTRL's dense push buffers): K11 within
     |err| <= 1e-5 + 1e-4 |plain| (pred, diff), loss sum rel err <= 1e-5
-    and equal hit counts; K12 bit-exact on values and diffs rounded by
-    ``lr_grid``. ``dup`` repeats keys within samples (a quarter of the
-    samples name their first categorical key twice more). Returns the
-    two kernels' result entries (timed when ``time_it``)."""
+    and equal hit counts; K12 bit-exact against its plain version on the
+    CPU (which adds a row's terms from its regularization term in
+    position order, as K12 and the reference do; ROADMAP C13: on the
+    card the plain version's ``index_add_`` takes another order each
+    run), the same bits on two launches, and K12's settle pass
+    (``lr_settle_check``). ``dup`` repeats keys within samples (a quarter
+    of the samples name their first categorical key twice more). Returns
+    the two kernels' result entries (timed when ``time_it``)."""
     from multiverso_tpu_torch.kernels import logreg as lrk
     from multiverso_tpu_torch.models.logreg import objective
     R, C = config.input_size + 1, max(config.output_size, 1)
@@ -2120,22 +2158,23 @@ def lr_case(torch, np, tag: str, config, batch, gen, device, ps: bool,
 
     count = torch.full((1,), float(max(int((weights > 0).sum()), 1)),
                        device=device)
-    vg, dg = lr_grid(torch, values, ref[1], keys, R, float(count))
+    diff = ref[1]
     scale = 0.8
 
-    def push_buffers():
+    def push_buffers(dev=device):
         if not (ps and ftrl is not None):
             return None
-        return (torch.zeros(R, C, device=device),
-                torch.zeros(R, C, device=device))
+        return (torch.zeros(R, C, device=dev), torch.zeros(R, C, device=dev))
 
-    a, b, a2 = (_clone_table(table) for _ in range(3))
-    pa, pb, pa2 = push_buffers(), push_buffers(), push_buffers()
+    cpu = torch.device("cpu")
+    a, a2 = _clone_table(table), _clone_table(table)
+    b = table.to(cpu) if ftrl is None else tuple(t.to(cpu) for t in table)
+    pa, pa2, pb = push_buffers(), push_buffers(), push_buffers(cpu)
     want_rows = ps and ftrl is None
 
     def apply(t, p):
         return lrk.sparse_lr_apply(
-            t, keys, vg, dg, count, reg=reg, coef=config.regular_coef,
+            t, keys, values, diff, count, reg=reg, coef=config.regular_coef,
             scale=scale, ftrl=ftrl, delta_rows=want_rows, push=p)
 
     synced = no_sync(torch, lambda: apply(a, pa))
@@ -2145,10 +2184,10 @@ def lr_case(torch, np, tag: str, config, batch, gen, device, ps: bool,
         synced = (apply(a, pa), False)
     rows_a, delta_a = synced[0]
     rows_2, delta_2 = apply(a2, pa2)
-    touched = lrk.touched_rows(keys, R)
-    delta_b = lrk.sparse_lr_apply_plain(
-        b, touched, vg, dg, count, reg, config.regular_coef, scale, ftrl,
-        want_rows, pb)
+    touched = lrk.touched_rows(keys.to(cpu), R)
+    delta_b, _ = lrk.sparse_lr_apply_plain(
+        b, touched, values.to(cpu), diff.to(cpu), count.to(cpu), reg,
+        config.regular_coef, scale, ftrl, want_rows, pb)
     U = int(touched.rows.numel())
     pairs = list(zip((a,) if ftrl is None else a, (b,) if ftrl is None
                      else b))
@@ -2158,27 +2197,32 @@ def lr_case(torch, np, tag: str, config, batch, gen, device, ps: bool,
     if want_rows:
         pairs.append((delta_a[:U], delta_b))
         twice += [(rows_a, rows_2), (delta_a[:U], delta_2[:U])]
-        same_rows = bool(torch.equal(rows_a[:U], touched.rows)) and bool(
-            (rows_a[U:] == R).all())
+        same_rows = bool(torch.equal(rows_a[:U].cpu(), touched.rows)) \
+            and bool((rows_a[U:] == R).all())
     if pa is not None:
         pairs += list(zip(pa, pb))
         twice += list(zip(pa, pa2))
+    pairs = [(x.to(cpu), y) for x, y in pairs]
     apply_err = max(float((x - y).abs().max()) for x, y in pairs)
+    exact = all(torch.equal(x.contiguous().view(torch.int32),
+                            y.contiguous().view(torch.int32))
+                for x, y in pairs)
     same_bits = all(torch.equal(x.contiguous().view(torch.int32),
                                 y.contiguous().view(torch.int32))
                     for x, y in twice)
     app_bytes = B * K * 4 * 2 + B * C * 4 + 4 + U * sectors * 2 * tables \
         + (U * C * 4 if want_rows else 0) \
         + (U * sectors * 2 if pa is not None else 0)
+    zero_ok, zero_text = lr_settle_check(torch, lrk, device)
     app = dict(
         name="sparse_lr_apply",
-        ok=apply_err == 0.0 and same_rows and same_bits and synced[1],
+        ok=exact and same_rows and same_bits and synced[1] and zero_ok,
         max_abs_err=apply_err,
-        tol=f"bit-exact on grid-rounded values and diffs ({U} touched "
+        tol=f"bit-exact against the plain version on the CPU ({U} touched "
             f"rows, the padding row's {int(touched.counts[-1])} "
-            f"positions among them); same bits on two launches "
-            f"{'yes' if same_bits else 'NO'}; no host sync in the call "
-            f"{'yes' if synced[1] else 'NO'}",
+            f"positions among them): {'yes' if exact else 'NO'}; same "
+            f"bits on two launches {'yes' if same_bits else 'NO'}; no host "
+            f"sync in the call {'yes' if synced[1] else 'NO'}; {zero_text}",
         source=_LR_SRC, replaces=_LR_REF + "objective.py:89",
         library_ms=None, bound=bound(app_bytes, 3.0 * B * K * C))
     log(f"[{tag}] K11/K12 case: B={B} K={K} C={C} R={R} "
@@ -2196,12 +2240,13 @@ def lr_case(torch, np, tag: str, config, batch, gen, device, ps: bool,
 
         def run_kernel():
             return lrk.sparse_lr_apply(
-                ta, keys, vg, dg, count, reg=reg, coef=config.regular_coef,
-                scale=scale, ftrl=ftrl, delta_rows=want_rows, push=pa2)
+                ta, keys, values, ref[1], count, reg=reg,
+                coef=config.regular_coef, scale=scale, ftrl=ftrl,
+                delta_rows=want_rows, push=pa2)
 
         def run_plain():
             return lrk.sparse_lr_apply_plain(
-                ta, lrk.touched_rows(keys, R), vg, dg, count, reg,
+                ta, lrk.touched_rows(keys, R), values, ref[1], count, reg,
                 config.regular_coef, scale, ftrl, want_rows, pa2)
 
         log_split("sparse_lr_apply", tag, time_split(torch, run_kernel))
@@ -2209,13 +2254,83 @@ def lr_case(torch, np, tag: str, config, batch, gen, device, ps: bool,
         # the call's time from queued CUDA events.
         app["ms"] = time_queued_ms(torch, run_kernel)
         app["plain_ms"] = time_ms(torch, run_plain)
-        entries = [fwd, app]
-        if hasattr(lrk, "key_sort"):
-            entries.append(check_key_sort(torch, keys, R))
-            log(f"[{tag}] K12 {app['ms']:.4f} ms a call with its id sort "
-                f"(K20 key_sort, {entries[2]['ms']:.4f} ms alone)")
+        entries = [fwd, app, check_key_sort(torch, keys, R)]
+        log(f"[{tag}] K12 {app['ms']:.4f} ms a call with its id sort "
+            f"(K20 key_sort, {entries[2]['ms']:.4f} ms alone)")
         return entries
     return [fwd, app]
+
+
+def lr_settle_check(torch, lrk, device):
+    """K12's settle pass (``lr_settle``, ROADMAP C12) against its plain
+    version on the CPU, tables and flags bit for bit after each step:
+    an L2 sgd step whose update of a weight of -2e-38 underflows
+    (written as -0, the flag raised), then a step that does not touch
+    that row (its -0 settled to +0), FTRL likewise on ``z``; and one
+    step after the host's request (a load) with -0 and subnormals in
+    rows it does not touch (settled to +0 under L2, to their sign's zero
+    without a regularizer) and in one it touches. Returns (ok, text)."""
+    cpu = torch.device("cpu")
+    R, B, K = 4096, 8, 4
+    keys = torch.arange(B * K, dtype=torch.int32).reshape(B, K) * 7 + 1
+    values = torch.full((B, K), 0.25)
+    keys[0] = torch.tensor([5, R - 1, R - 1, R - 1])
+    values[0] = 0.0
+    count = torch.full((1,), 16.0)
+    later = keys.clone()
+    later[0, 0] = 9
+
+    def steps(ftrl, reg, plus, w, d, request, batches, row):
+        tables = [w.clone(), w.clone()] if ftrl is None else \
+            [(w.clone(), w.abs()), (w.clone(), w.abs())]
+        flags = [lrk.SettleFlag(device, plus), lrk.SettleFlag(cpu, plus)]
+        if request:
+            for flag in flags:
+                flag.request()
+        got = []
+        for step_keys in batches:
+            for side, dev in ((0, device), (1, cpu)):
+                t = tables[side]
+                t = t.to(dev) if ftrl is None else tuple(x.to(dev) for x in t)
+                lrk.sparse_lr_apply(
+                    t, step_keys.to(dev), values.to(dev),
+                    torch.full((B, 1), d, device=dev), count.to(dev),
+                    reg=reg, coef=0.01, scale=0.37, ftrl=ftrl,
+                    settle=flags[side])
+                tables[side] = t
+            one = [x.to(cpu) for x in ((tables[0],) if ftrl is None
+                                       else tables[0])]
+            two = [x for x in ((tables[1],) if ftrl is None else tables[1])]
+            same = all(torch.equal(x.view(torch.int32), y.view(torch.int32))
+                       for x, y in zip(one, two))
+            got.append((int(one[0][row, 0].view(torch.int32)),
+                        flags[0].raised(), flags[1].raised(), same))
+        return got
+
+    bad = []
+    # (FTRL, the value at row 5, diff): the term v * diff / 16 takes
+    # w = -2e-38 to -6.1e-39 (sgd, lr 0.37) or z to -1.25e-39 (FTRL).
+    for ftrl, v, d in ((None, 1.2e-36, -0.5),
+                       (lrk.Ftrl(0.1, 1.0, 0.0, 0.0), 6e-37, 0.5)):
+        values[0, 0] = v
+        w = torch.linspace(-0.5, 0.5, R)[:, None].contiguous()
+        w[5] = -2e-38
+        got = steps(ftrl, lrk.REG_L2 if ftrl is None else 0, True, w, d,
+                    False, (keys, later), 5)
+        if got != [(-2 ** 31, True, True, True), (0, False, False, True)]:
+            bad.append(f"{'ftrl' if ftrl else 'sgd'}: {got}")
+    values[0, 0] = 0.25
+    # A load: untouched rows 2-4 (-0, +/-1e-39), touched row 29 (-1e-39).
+    w = torch.linspace(-0.5, 0.5, R)[:, None].contiguous()
+    w[2], w[3], w[4], w[29] = -0.0, 1e-39, -1e-39, -1e-39
+    for reg, plus in ((lrk.REG_L2, True), (lrk.REG_NONE, False)):
+        got = steps(None, reg, plus, w, -0.5, True, (keys,), 4)
+        if got != [(0 if plus else -2 ** 31, False, False, True)]:
+            bad.append(f"load, {'L2' if plus else 'no reg'}: {got}")
+    return not bad, ("settle pass: a written -0 flagged, then settled to "
+                     "+0, and a load's zeros and subnormals settled, as "
+                     "the plain version: " + ("yes" if not bad else
+                                              f"NO ({'; '.join(bad)})"))
 
 
 def no_sync(torch, fn):
@@ -2332,11 +2447,8 @@ def check_key_sort(torch, keys, R: int):
         keysort.key_sort(keys, R)
     wrapper = (keysort.key_sort.launches - before) / REPS
     per_call, names = kernel_names(torch, lambda: keysort.key_sort(keys, R))
-    # The kernels a call the wrapper launches (an earlier tree's six
-    # launches say nothing).
-    want = getattr(keysort, "KERNELS_A_CALL", None)
-    if wrapper != 1 or want is not None and (len(names) != want
-                                             or per_call > want):
+    want = keysort.KERNELS_A_CALL
+    if wrapper != 1 or len(names) != want or per_call > want:
         bad.append(f"{per_call:g} kernels a call traced")
     synced = no_sync(torch, lambda: keysort.key_sort(keys, R))[1]
     if not synced:
@@ -2732,7 +2844,8 @@ def tbl_check_rule(torch, rules, rule: str, replaces: str, table, state,
                    cases, sets, hyp, C: int):
     """K13 against its plain version on each (ids, delta, worker) of
     ``cases`` (data and state within TBL_TOL), then timed on the
-    (ids, delta) ``sets`` in turn, worker 0."""
+    (ids, delta) ``sets`` in turn, worker 0, with CUDA events around
+    queued calls (the profiler can lose K20's and K13's launches)."""
     err, failed = 0.0, []
     for name, (ids, delta, worker) in zip(TBL_CASES, cases):
         a_d, a_s = table.clone(), state.clone()
@@ -2758,9 +2871,9 @@ def tbl_check_rule(torch, rules, rule: str, replaces: str, table, state,
         + (f"; FAILED on {failed}" if failed else ""),
         max_abs_err=err, ok=not failed,
         source="multiverso_tpu_torch/csrc/row_rules.cu", replaces=replaces,
-        ms=time_ms(torch, in_turn([[s] for s in sets], lambda i, d: rules.
-                                  row_rule_apply(rule, a_d, a_s, i, d, hyp,
-                                                 0))),
+        ms=queued_in_turn_ms(torch, [
+            lambda i=i, d=d: rules.row_rule_apply(rule, a_d, a_s, i, d, hyp,
+                                                  0) for i, d in sets]),
         plain_ms=time_ms(torch, in_turn(
             [[s] for s in sets], lambda i, d: rules.row_rule_apply_plain(
                 rule, a_d, a_s, i, d, hyp, 0))),
@@ -2774,16 +2887,19 @@ def tbl_check_rule(torch, rules, rule: str, replaces: str, table, state,
 
 def tbl_exact_stateful(torch, rules, rule: str, hyp, device, fused: bool,
                        C: int = TBL_COLS):
-    """K13 (or K14, ``fused``, gathering the same ids) under a stateful
-    rule against its plain version on the CPU, bit for bit (int32 views
+    """K13 (or K14, ``fused``, gathering the same ids, in its sorted form
+    and in its distinct form on ascending ids) under a stateful rule
+    against its plain version on the CPU, bit for bit (int32 views
     of the table, the state and the gathered rows): the kernels fuse a
     product into an add exactly where the reference's XLA does
-    (``__fmaf_rn``; ROADMAP C13: momentum's last column of rows up to 33
-    floats the other product) and the plain versions take the exact
+    (``__fmaf_rn``; ROADMAP C13: momentum's last column the other
+    product, in the step at rows up to 29 floats, in the state up to 33)
+    and the plain versions take the exact
     fused form (``flush.fma``), so with the phase's hyperparameters,
     whose products round, the two agree to the bit. A 100,000 x C table
-    (50: rows not 16-byte aligned, as the bench's; 16: a narrow row
-    whose last column swaps), 20,000 ids: 5% of them
+    (50: rows not 16-byte aligned, as the bench's; 32: a row whose
+    state's last column swaps and whose step's does not; 16: a narrow
+    row whose last column swaps in both), 20,000 ids: 5% of them
     repeating another's row, one row at 512 positions, wrapped and
     out-of-range ids, the last 16 ids past the delta's rows; worker 0
     and a worker past the slots. The plain version runs on the CPU,
@@ -2801,17 +2917,26 @@ def tbl_exact_stateful(torch, rules, rule: str, hyp, device, fused: bool,
                              2 ** 31 - 1], dtype=torch.int32, device=device)
     delta = torch.randn((n - 16, C), generator=gen, device=device) * 0.01
     state = tbl_state(torch, rule, table, gen)
+    # The distinct form's ids: ascending rows, the smallest wrapped, two
+    # dropped ids at the end, the last 16 rows past the delta's.
+    rows = torch.sort(torch.randperm(R, generator=gen, device=device)[
+        :n - 2]).values.to(torch.int32)
+    rows[0] -= R
+    ascending = torch.cat([rows, torch.tensor([R, -(R + 1)], device=device,
+                                              dtype=torch.int32)])
     cpu = torch.device("cpu")
     bad = []
-    for worker in (0, 3):
+    forms = [(0, ids, False), (3, ids, False)] + (
+        [(0, ascending, True), (3, ascending, True)] if fused else [])
+    for worker, ids, distinct in forms:
         a_d, a_s = table.clone(), state.clone()
         b_d, b_s = table.to(cpu), state.to(cpu)
         if fused:
             va = rules.rows_apply_gather(rule, a_d, a_s, ids, delta, hyp,
-                                         worker, ids, C)
+                                         worker, ids, C, distinct=distinct)
             vb = rules.rows_apply_gather_plain(
                 rule, b_d, b_s, ids.to(cpu), delta.to(cpu), hyp, worker,
-                ids.to(cpu), C)
+                ids.to(cpu), C, distinct=distinct)
         else:
             rules.row_rule_apply(rule, a_d, a_s, ids, delta, hyp, worker)
             rules.row_rule_apply_plain(rule, b_d, b_s, ids.to(cpu),
@@ -2823,10 +2948,14 @@ def tbl_exact_stateful(torch, rules, rule: str, hyp, device, fused: bool,
                                y.view(torch.int32)):
                 diff = int((x.to(cpu).view(torch.int32)
                             != y.view(torch.int32)).sum())
-                bad.append(f"worker {worker} {what}: {diff} differ")
+                bad.append(f"{'distinct' if distinct else 'sorted'} "
+                           f"worker {worker} {what}: {diff} differ")
     text = (f"bit for bit vs the plain version on the CPU at width {C} "
             f"(20,000 ids, repeats, a row at 512 positions, edge ids, ids "
-            f"past the delta, workers 0 and 3): "
+            f"past the delta, workers 0 and 3"
+            + ("; and the distinct form on 19,998 ascending ids, the last"
+               " 14 past the delta" if fused
+               else "") + "): "
             + ("yes" if not bad else f"NO ({'; '.join(bad)})"))
     return not bad, text
 
@@ -2852,8 +2981,15 @@ def tbl_check_fused(torch, rules, rule: str, table, state, cases, sets,
     """K14 against its plain version on each (ids, delta, worker) of
     ``cases``, gathering the same ids: values, table and state bit for
     bit under the default rule (the caller rounds table and deltas to a
-    grid), within TBL_TOL otherwise; then timed on the (ids, delta)
-    ``sets`` in turn, worker 0."""
+    grid), within TBL_TOL otherwise. Then the path's own form on the
+    (ids, delta) ``sets`` in turn, worker 0, timed with CUDA events
+    around queued calls: under a stateful rule the distinct form (the
+    engine finds the path's host ids ascending), first held bit for bit
+    against its plain version on the CPU at ``sets[0]``, workers 0 and
+    past the slots, which gives the entry's max_abs_err; under the
+    default rule the sorted form (its path reads a device mirror of the
+    ids)."""
+    cpu = torch.device("cpu")
     err, failed = 0.0, []
     exact = state is None
     for name, (ids, delta, worker) in zip(TBL_CASES, cases):
@@ -2876,7 +3012,32 @@ def tbl_check_fused(torch, rules, rule: str, table, state, cases, sets,
                    else torch.allclose(x, y, **TBL_TOL) for x, y in pairs):
             failed.append(f"{name} ({case_err:g})")
         del a_d, b_d, a_s, b_s, va, vb
+    tol = ("bit-exact on grid-rounded deltas (values, table)" if exact
+           else f"rtol 1e-5 / atol 1e-7 (values, table, state; max err "
+                f"{err:g})") + f" on {', '.join(TBL_CASES[:len(cases)])}"
     ids, delta = sets[0]
+    distinct = not exact
+    if distinct:
+        err, path_bad = 0.0, []
+        for worker in (0, 1):
+            a_d, a_s = table.clone(), state.clone()
+            va = rules.rows_apply_gather(rule, a_d, a_s, ids, delta, hyp,
+                                         worker, ids, C, distinct=True)
+            b_d, b_s = table.to(cpu), state.to(cpu)
+            vb = rules.rows_apply_gather_plain(
+                rule, b_d, b_s, ids.to(cpu), delta.to(cpu), hyp, worker,
+                ids.to(cpu), C, distinct=True)
+            for what, x, y in (("values", va, vb), ("table", a_d, b_d),
+                               ("state", a_s, b_s)):
+                x = x.to(cpu)
+                err = max(err, float((x - y).abs().max()))
+                if not torch.equal(x.view(torch.int32), y.view(torch.int32)):
+                    path_bad.append(f"worker {worker} {what}")
+            del a_d, a_s, b_d, b_s, va, vb
+        failed += [f"the path's distinct form: {b}" for b in path_bad]
+        tol += (f"; the path's distinct form on its ascending ids, workers"
+                f" 0 and 1 (past the slots), bit for bit vs the plain "
+                f"version on the CPU: {'NO' if path_bad else 'yes'}")
     uniq = touched_rows(torch, ids, table.shape[0])
     # The update's bytes, the gather's ids and values; the rows gathered
     # are the rows just updated, which need no second read.
@@ -2885,29 +3046,35 @@ def tbl_check_fused(torch, rules, rule: str, table, state, cases, sets,
         + ids.numel() * C * 4
     a_d = table.clone()
     a_s = None if exact else state.clone()
-    # Timed launch by launch: the id sort in torch, then K14.
-    split = time_split(torch, in_turn(
-        [[s] for s in sets], lambda i, d: rules.rows_apply_gather(
-            rule, a_d, a_s, i, d, hyp, 0, i, C)))
-    log_split("rows_apply_gather", f"tbl_fused_{rule}", split)
     result = dict(
         name="rows_apply_gather",
-        tol=("bit-exact on grid-rounded deltas (values, table)" if exact
-             else "rtol 1e-5 / atol 1e-7 (values, table, state)")
-        + f" on {', '.join(TBL_CASES[:len(cases)])}"
-        + (f"; FAILED on {failed}" if failed else ""),
+        tol=tol + (f"; FAILED on {failed}" if failed else ""),
         max_abs_err=err, ok=not failed,
         source="multiverso_tpu_torch/csrc/row_rules.cu",
         replaces="multiverso_tpu/updater/engine.py:155",
-        ms=sum(ms for _, ms in split),
+        ms=queued_in_turn_ms(torch, [
+            lambda i=i, d=d: rules.rows_apply_gather(
+                rule, a_d, a_s, i, d, hyp, 0, i, C, distinct=distinct)
+            for i, d in sets]),
         plain_ms=time_ms(torch, in_turn(
             [[s] for s in sets], lambda i, d: rules.rows_apply_gather_plain(
-                rule, a_d, a_s, i, d, hyp, 0, i, C))),
+                rule, a_d, a_s, i, d, hyp, 0, i, C, distinct=distinct))),
         library_ms=None,
         bound=bound(n_bytes,
                     TBL_FLOPS[rule] * touched_ids(torch, ids, table) * C))
+    log(f"[kernel rows_apply_gather @ tbl_fused_{rule}] "
+        f"{'distinct' if distinct else 'sorted'} form (the path's): "
+        f"{result['ms']:.4f} ms a call (queued events, {len(sets)} sets "
+        f"in turn)")
     del a_d, a_s
     return result
+
+
+def queued_in_turn_ms(torch, calls) -> float:
+    """``time_queued_ms`` of ``calls`` made in turn (each set of inputs
+    out of L2 by the time its turn comes again)."""
+    turn = itertools.cycle(calls)
+    return time_queued_ms(torch, lambda: next(turn)())
 
 
 def tbl_fused_raw(torch, rules, table, id_cases, delta, ascending, hyp,
@@ -3019,7 +3186,7 @@ def tbl_kernel_checks(torch, np, device, card: str):
         del state
         for entry, fused in ((out[f"tbl_dirty_{suffix}"][0], False),
                              (out[f"tbl_fused_{suffix}"][0], True)):
-            for width in (TBL_COLS, 16):
+            for width in (TBL_COLS, 32, 16):
                 exact_ok, exact_text = tbl_exact_stateful(
                     torch, rules, suffix, hyp, device, fused, width)
                 entry.update(ok=entry["ok"] and exact_ok,
@@ -3047,22 +3214,38 @@ def tbl_kernel_checks(torch, np, device, card: str):
     return out
 
 
+# Wrappers whose kernels' names hold the wrapper's name, counted in the
+# profiled rounds' traces: the profiler can lose cooperative launches.
+TBL_TRACED = ("rows_apply_gather", "row_rule_apply", "key_sort")
+
+
 def tbl_profile(torch, path: str, rounds, workdir: str, profile_dir: str,
                 n_rounds: int):
-    """(device ms a round of kernels, busy share) of ``n_rounds`` more
-    rounds under torch.profiler."""
+    """(device ms a round of kernels, busy share, lost) of ``n_rounds``
+    more rounds under torch.profiler. ``lost`` names each wrapper of
+    TBL_TRACED that launched more kernels than the trace holds, with
+    both counts: the device ms and busy share are then unreadable."""
     import torch.profiler as tp
+    from multiverso_tpu_torch import kernels
+    before = kernels.launch_counts()
     with tp.profile(activities=[tp.ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(n_rounds):
             rounds()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    counted = kernels.launch_counts()
     trace = os.path.join(profile_dir or workdir, f"{path}_trace.json")
     if profile_dir:
         os.makedirs(profile_dir, exist_ok=True)
     _, busy_ms, kernel_ms = trace_kernels(prof, trace)
-    return kernel_ms / n_rounds, busy_ms / (wall * 1e3)
+    lost = []
+    for name in TBL_TRACED:
+        launched = counted[name] - before[name]
+        traced = trace_kernel_sum(trace, name)[0]
+        if traced < launched:
+            lost.append(f"{name} {traced} traced of {launched}")
+    return kernel_ms / n_rounds, busy_ms / (wall * 1e3), lost
 
 
 def tbl_drive(torch, path: str, card: str, need, one_round, round_bytes,
@@ -3100,9 +3283,12 @@ def tbl_drive(torch, path: str, card: str, need, one_round, round_bytes,
         missing = [n for n in need if counts[n] <= 0]
         if missing:
             raise AssertionError(f"{path} never launched {missing}")
-        dev_ms, busy = tbl_profile(torch, path, one_round, workdir,
-                                   profile_dir, iters)
-        line += f" | profiled: device {dev_ms:.4f} ms a round, busy {busy:.1%}"
+        dev_ms, busy, lost = tbl_profile(torch, path, one_round, workdir,
+                                         profile_dir, iters)
+        line += (f" | profiled: device ms a round and busy share "
+                 f"unreadable, the trace lost launches ({', '.join(lost)})"
+                 if lost else f" | profiled: device {dev_ms:.4f} ms a "
+                 f"round, busy {busy:.1%}")
     log(line)
     for entry in monitors.splitlines():
         log(f"[{path}] {entry}")
@@ -3802,15 +3988,16 @@ def ma_slot_draws(device, n: int, draw_device=None):
     return draws
 
 
-def trace_kernel_ms(trace: str, needle: str) -> float:
-    """Summed ms of the kernels whose name holds ``needle`` in a Chrome
-    trace written by ``trace_kernels``."""
+def trace_kernel_sum(trace: str, needle: str):
+    """(launches, summed ms) of the kernels whose name holds ``needle``
+    in a Chrome trace written by ``trace_kernels``."""
     with open(trace) as f:
         events = json.load(f)
     events = events.get("traceEvents", events)
-    return sum(float(e["dur"]) for e in events
-               if e.get("cat") == "kernel" and "dur" in e
-               and needle in e.get("name", "")) / 1e3
+    durs = [float(e["dur"]) for e in events
+            if e.get("cat") == "kernel" and "dur" in e
+            and needle in e.get("name", "")]
+    return len(durs), sum(durs) / 1e3
 
 
 def ma_small_group(torch, np, device):
@@ -3938,8 +4125,8 @@ def ma_mesh_path(torch, np, device, dictionary, tokenized, card: str,
         "group")
     if cuda:
         trace = os.path.join(profile_dir or workdir, f"{path}_trace.json")
-        k19_ms = trace_kernel_ms(trace, "mesh_allreduce")
-        all_ms = trace_kernel_ms(trace, "")
+        k19_ms = trace_kernel_sum(trace, "mesh_allreduce")[1]
+        all_ms = trace_kernel_sum(trace, "")[1]
         log(f"[{path}] K19 {k19_ms / MA_GROUPS:.4f} ms a group (2 calls) "
             f"of {all_ms / MA_GROUPS:.4f} device ms ({k19_ms / all_ms:.1%})"
             f"; {MA_SLOTS * MA_G} slot-steps a group")
@@ -4150,8 +4337,10 @@ def run_step_kernels_phase(torch, np, mv, device, dictionary, tokenized,
     thread block; K12 with K20 (``sparse_lr_apply``; ``key_sort`` K20
     alone) at ``lr_sparse_local``'s shapes; K19 (``mesh_allreduce``) in
     both forms at ``ma_mesh4``'s (``dictionary`` None: the bench
-    corpus's size, ``MA_BENCH_WORDS``; these three need no corpus).
-    Returns the kernel results."""
+    corpus's size, ``MA_BENCH_WORDS``); named alone, phase 10a's table
+    kernel checks (``rows_apply_gather``: ``tbl_kernel_checks``) and
+    K9's forms (``pairlist_ns_grad``: ``check_k9_forms``). Those five
+    need no corpus. Returns the kernel results."""
     from multiverso_tpu_torch.models.wordembedding import (
         DeviceCorpusTrainer, PSDeviceCorpusTrainer, PSWord2Vec, Word2Vec,
         Word2VecConfig)
@@ -4212,6 +4401,16 @@ def run_step_kernels_phase(torch, np, mv, device, dictionary, tokenized,
         results += report([check_key_sort(
             torch, torch.from_numpy(batch.keys.astype(np.int32)).to(device),
             lr_config(_LR_SGD).input_size + 1)], card, "lr_sparse_local")
+    if device.type == "cuda" and chosen is not None \
+            and "rows_apply_gather" in chosen:
+        for entries in tbl_kernel_checks(torch, np, device, card).values():
+            results += entries
+    if device.type == "cuda" and chosen is not None \
+            and "pairlist_ns_grad" in chosen:
+        ok, text = check_k9_forms(torch, device)
+        log(f"[kernel pairlist_ns_grad] {text}")
+        if not ok:
+            raise AssertionError(f"pairlist_ns_grad: {text}")
     if device.type == "cuda" and (chosen is None
                                   or "mesh_allreduce" in chosen):
         V = MA_BENCH_WORDS if dictionary is None else dictionary.size
@@ -4230,8 +4429,7 @@ def run_step_kernels_phase(torch, np, mv, device, dictionary, tokenized,
 def lr_apply_case(torch, np, device):
     """K11 and K12 (with K20) at ``lr_sparse_local``'s shapes (the first
     of phase 9's batches): held and timed as phase 9 holds them, K12
-    split launch by launch. An earlier tree's K12 (no K20) is timed the
-    same way."""
+    split launch by launch."""
     keys, values, labels = criteo_like(np, LR_BATCH, seed=9)
     batch = lr_batches(np, keys, values, labels, LR_BATCH)[0]
     gen = torch.Generator(device=device)
@@ -4315,7 +4513,8 @@ def main(argv=None) -> int:
         if args.step_kernels_only:
             dictionary = tokenized = None
             if not set(args.step_kernels_only.split(",")) <= {
-                    "mesh_allreduce", "key_sort", "sparse_lr_apply"}:
+                    "mesh_allreduce", "key_sort", "sparse_lr_apply",
+                    "rows_apply_gather", "pairlist_ns_grad"}:
                 dictionary, tokenized = bench_corpus(
                     workdir, sentences or synthetic.SENTENCES)
                 reuse_huffman_trees()

@@ -24,37 +24,49 @@
 //
 // K12, over the batch's UNIQUE touched rows (ids as JAX's .at[keys].add
 // takes them: [-R, -1] wraps, every other out-of-range id is dropped).
-// The caller sorts the flat positions by row on the card (K20 key_sort,
-// csrc/key_sort.cu; dropped ids sort last). Most touched rows hold one to
-// three positions and one is hot — the padding key input_size names a
-// real row, 25 of every 64 positions at criteo's widths — so the sum of
-// values[pos] * diff[b] / count over each row's run is segmented, with
-// no idle lanes: a warp takes 256 sorted positions, a lane 8 of them in
-// turn; the runs open at the lanes' ends are joined by a segmented scan
-// over the lanes; a run that ends inside the warp's 256 updates its row
-// there; a run that crosses the warp's first or last position leaves its
-// partial sum in the warp's two slots, and the next level (a launch)
-// sums those slots the same way, until one warp holds a level (K3's
-// level scheme). One writer a row and a fixed order: the same bits on
-// every run, and no host sync (the grids are sized from B*K). Then
-// g = sum + reg(W_old) (L1 coef*sign, L2 coef*w, or 0) and
-//   sgd:  w -= scale * g  (scale = lr, or 1 for the default updater),
-//         optionally writing the delta rows scale * g for the PS push
-//         (kept at the run's end position, then packed in row order with
-//         the rows themselves, R past the last, by one more launch);
-//   ftrl: sigma = (sqrt(n + g^2) - sqrt(n)) / alpha, z += g - sigma * w,
-//         n += g^2, optionally writing g - sigma*w and g^2 into zeroed
-//         dense push buffers.
+// The reference folds zeros.at[keys].add(u) + touched * reg(w) into ONE
+// scatter-add into touched * reg(w) (reg: L1 coef*sign(w), L2 coef*w, or
+// +0), which XLA's CPU backend runs as a loop over the positions in
+// order. K12 forms each row's sum the same way: from reg(w_old), the
+// terms values[pos] * diff[b] / count added one by one in position order
+// (ROADMAP C13). The caller sorts the flat positions by row on the card
+// (K20 key_sort, csrc/key_sort.cu: stable, so a row's run is in position
+// order; dropped ids sort last). Most touched rows hold one to three
+// positions, a few are hot: the padding key input_size names a real row
+// (25 of every 64 positions at criteo's widths, every term a zero) and
+// criteo's 13 numeric keys sit in every sample. lr_runs takes a warp a
+// tile of 256 sorted positions: the terms go to shared memory, and the
+// lane at the head of a run that lies in the tile sums it and updates
+// its row. A run that leaves its tile is listed and summed by a block of
+// lr_long: a stretch of tiles whose terms are all zeros adds as ONE zero
+// (adding zeros changes only a zero sum's sign: +0 if any term is +0),
+// from the per-tile flags lr_runs records, and the tiles with a nonzero
+// term are loaded eight at a time and added by one thread, a dependent
+// add a term: the reference's order allows no tree. One writer a row:
+// the same bits on every run, and no host sync. Then
+//   sgd:  w = fma(-g, scale, w) (LocalModel's fused program), or with
+//         the PS push d = g * scale, w -= d, the delta rows kept at the
+//         run's end position, then packed in row order with the rows
+//         themselves, R past the last, by one more launch (lr_rows);
+//   ftrl: n' = fma(g, g, n), sigma = (sqrt(n') - sqrt(n)) * (1/alpha),
+//         z += g - sigma * w, optionally writing g - sigma*w and g*g
+//         into zeroed dense push buffers.
+// Every other operation is an _rn intrinsic in the reference's order.
 // Untouched rows are left alone, which equals the reference's dense
-// update on them (g = 0 there). The elementwise arithmetic after the sums
-// uses the _rn intrinsics in the reference's order, so no FMA contraction
-// changes a rounding: on inputs whose sums are exact in any order the
-// kernel and its plain version agree bit for bit.
+// update on them but for zeros and subnormals: that update flushes a
+// subnormal, and under a regularizer and in FTRL's state turns a -0 or a
+// subnormal into +0 ("plus"). The step settles them in its first kernel,
+// lr_settle, when its SettleFlag slot is up: the host raises it after a
+// load or a pull, and K12 raises it, under "plus", when it writes a -0
+// into a touched row (ROADMAP C12). No host sync either way.
 //
 // Bound on the card: bytes. K11 reads keys and values once and one 32-byte
 // sector of W (or of z and n) for each distinct row; K12 reads the
 // positions' values and diffs and reads and writes one sector of each
-// touched row of each table.
+// touched row of each table. Beside the bytes, K12's hot rows wait on a
+// chain of dependent adds, one a term in the reference's order (4,096 a
+// batch for each of criteo's 13 numeric keys), which no tree may
+// shorten.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -70,8 +82,10 @@ constexpr unsigned kFull = 0xffffffffu;
 enum Act { kLinear = 0, kSigmoid = 1, kSoftmax = 2 };
 enum Reg { kRegNone = 0, kRegL1 = 1, kRegL2 = 2 };
 
+// inv_alpha: 1/alpha rounded to float32, as the reference's XLA turns the
+// division by the constant alpha into a multiplication.
 struct Ftrl {
-  float alpha, beta, l1, l2;
+  float inv_alpha, beta, l1, l2;
 };
 
 __device__ __forceinline__ float warp_sum(float x) {
@@ -90,15 +104,41 @@ __device__ __forceinline__ float sign_of(float x) {
   return x > 0.f ? 1.f : (x < 0.f ? -1.f : x);
 }
 
-// FTRL's weights_of (model.py:211-213), operation by operation:
-// -(sign(z) * max(|z| - l1, 0)) / ((beta + sqrt(n)) / alpha + l2).
+// FTRL's weights_of (model.py:211-213), operation by operation as the
+// reference's XLA compiles it: -(sign(z) * max(|z| - l1, 0)) /
+// fma(sqrt(n) + beta, 1/alpha, l2).
 __device__ __forceinline__ float ftrl_weight(float z, float n, Ftrl f) {
   float excess = __fsub_rn(fabsf(z), f.l1);
   excess = excess < 0.f ? 0.f : excess;
   const float shrunk = __fmul_rn(sign_of(z), excess);
   const float den =
-      __fadd_rn(__fdiv_rn(__fadd_rn(f.beta, __fsqrt_rn(n)), f.alpha), f.l2);
+      __fmaf_rn(__fadd_rn(__fsqrt_rn(n), f.beta), f.inv_alpha, f.l2);
   return __fdiv_rn(-shrunk, den);
+}
+
+// jax.nn.sigmoid as the reference's XLA compiles it on the CPU (ROADMAP
+// C13): 1 / (exp(-z) + 1) with XLA's polynomial exp (the input clamped,
+// 2^k split off, a degree-5 polynomial; its constants read from the
+// compiled program), the products fused into the adds that follow them
+// as its machine code fuses them, the scaling by 2^k into the + 1.
+__device__ __forceinline__ float xla_sigmoid(float z) {
+  const float lo = __int_as_float(0xC2AF999A), hi = __int_as_float(0x42B1999A);
+  float x = -z;
+  x = (x >= lo || isnan(x)) ? x : lo;
+  x = (x <= hi || isnan(x)) ? x : hi;
+  float k = floorf(__fmaf_rn(x, __int_as_float(0x3FB8AA3B), 0.5f));
+  k = k >= -127.f ? k : -127.f;
+  k = k <= 127.f ? k : 127.f;
+  float r = __fmaf_rn(-k, __int_as_float(0x3F318000), x);
+  r = __fmaf_rn(-k, __int_as_float(0xB95E8083), r);
+  float y = __fmaf_rn(__int_as_float(0x39506967), r, __int_as_float(0x3AB743CE));
+  y = __fmaf_rn(y, r, __int_as_float(0x3C088908));
+  y = __fmaf_rn(y, r, __int_as_float(0x3D2AA9C1));
+  y = __fmaf_rn(y, r, __int_as_float(0x3E2AAAAA));
+  y = __fmaf_rn(y, r, 0.5f);
+  const float e1 = __fadd_rn(__fmaf_rn(y, __fmul_rn(r, r), r), 1.f);
+  const float scale = __int_as_float(((int)k + 127) << 23);
+  return __fdiv_rn(1.f, __fmaf_rn(e1, scale, 1.f));
 }
 
 // The row JAX's w[keys] reads: [-R, -1] wraps, then clamp into [0, R-1].
@@ -161,7 +201,7 @@ __global__ void sparse_lr_forward_kernel(
     const float x = lg[c];
     float p = x;
     if (act == kSigmoid) {
-      p = 1.f / (1.f + expf(-x));
+      p = xla_sigmoid(x);
     } else if (act == kSoftmax) {
       p = expf(x - mx) / se;
     }
@@ -204,24 +244,20 @@ __global__ void sparse_lr_forward_kernel(
 
 // ---- K12 ----
 
-constexpr int kRun = 8;             // sorted positions a lane sums in turn
+constexpr int kRun = 8;             // sorted positions a lane takes
 constexpr int kSpan = 32 * kRun;    // 256 positions a warp's tile
+constexpr uint8_t kNonzero = 1, kPlusZero = 2;  // a segment's term flags
+constexpr int kBatch = kThreads / 32;  // tiles a long run loads at once
 
 struct Apply {
   float* w;
   float* z;
   float* n;
   int C;
-  int64_t rows;             // R; level 0's dropped ids carry the key R
-  // The level: level 0 the sorted keys and their flat positions; above,
-  // the slots of the level below (key -1: empty; `ends`: the level-0
-  // position where the slot's run ends, or -1) with their partial sums.
-  const int32_t* keys;
-  const int32_t* order;
-  const int32_t* ends;
-  const float* vals;
+  int64_t rows;             // R: dropped ids carry the key R, sorted last
+  const int32_t* keys;      // [len] sorted keys
+  const int32_t* order;     // [len] each one's flat position b * K + k
   int64_t len;
-  // Level 0's terms: values[pos] * diff[pos / K] / count.
   const float* values;
   const float* diff;
   int K;
@@ -231,220 +267,356 @@ struct Apply {
   int ftrl_on;
   Ftrl f;
   float scale;
-  float* delta_end;         // [N, C] delta rows at their run's end, or null
+  int fused;                // sgd: w - g * scale as one fused multiply-add
+  float* delta_end;         // [len, C] delta rows at their run's end, or null
   float* dz;
   float* dn;
-  int32_t* next_keys;       // the next level's slots (two a tile), or null
-  int32_t* next_ends;
-  float* next_vals;
-  int32_t* tile_ends;       // level 0: run ends a tile (with delta_end)
+  int32_t* tile_ends;       // [tiles] run ends a tile
+  int32_t* long_heads;      // [tiles] heads of the runs that leave their tile
+  int32_t* long_count;
+  uint8_t* seg_flags;       // [tiles][2][C]: first and last segment's flags
+  int32_t* settle;          // SettleFlag's two slots, or null
+  int epoch;
+  int plus;                 // settle to +0 (else flush to the sign's zero)
 };
 
-// The update of element c of a touched row from its gradient sum and its
-// old value(s) (`o1`: w or z; `o2`: n), as the reference orders it
-// (FTRL, or sgd with the delta row kept at the run's end position for
-// the PS push).
-__device__ __forceinline__ void finalize(const Apply& a, int32_t row, int c,
-                                         float sum, int32_t end, float o1,
-                                         float o2) {
+// Term of sorted position p in column c: values[pos] * diff[b, c] / count,
+// as the reference's updates (objective.py:104).
+__device__ __forceinline__ float term_of(const Apply& a, int64_t p, int c,
+                                         float cnt) {
+  const int32_t pos = a.order[p];
+  return __fdiv_rn(__fmul_rn(a.values[pos],
+                             a.diff[(int64_t)(pos / a.K) * a.C + c]),
+                   cnt);
+}
+
+// A touched row's element before the update: o1 (w, or FTRL's z), o2
+// (FTRL's n) and the weight w_old; returns the gradient's first value,
+// touched * reg(w_old) (+0 without a regularizer), into which the
+// reference's scatter adds the terms.
+__device__ __forceinline__ float row_start(const Apply& a, int32_t row, int c,
+                                           float& o1, float& o2,
+                                           float& wo) {
   const int64_t at = (int64_t)row * a.C + c;
   if (a.ftrl_on) {
-    const float zo = o1, no = o2;
-    const float wo = ftrl_weight(zo, no, a.f);
-    const float g = __fadd_rn(sum, reg_of(wo, a.reg, a.coef));
-    const float g2 = __fmul_rn(g, g);
-    const float sigma = __fdiv_rn(
-        __fsub_rn(__fsqrt_rn(__fadd_rn(no, g2)), __fsqrt_rn(no)), a.f.alpha);
+    o1 = a.z[at];
+    o2 = a.n[at];
+    wo = ftrl_weight(o1, o2, a.f);
+  } else {
+    o1 = a.w[at];
+    o2 = 0.f;
+    wo = o1;
+  }
+  return reg_of(wo, a.reg, a.coef);
+}
+
+__device__ __forceinline__ bool neg_zero(float x) {
+  return __float_as_uint(x) == 0x80000000u;
+}
+
+// The update of element c of a touched row from its gradient g, as the
+// reference forms it (LocalModel's w - g * lr fused; PSModel's delta
+// rounded, kept at the run's end position for the push; FTRL's n + g * g
+// fused and its 1/alpha a multiplication). A -0 written raises the
+// SettleFlag of this epoch under "plus".
+__device__ __forceinline__ void finalize(const Apply& a, int32_t row, int c,
+                                         float g, int64_t end, float o1,
+                                         float o2, float wo) {
+  const int64_t at = (int64_t)row * a.C + c;
+  bool zero;
+  if (a.ftrl_on) {
+    const float nn = __fmaf_rn(g, g, o2);
+    const float sigma = __fmul_rn(
+        __fsub_rn(__fsqrt_rn(nn), __fsqrt_rn(o2)), a.f.inv_alpha);
     const float step = __fsub_rn(g, __fmul_rn(sigma, wo));
-    a.z[at] = __fadd_rn(zo, step);
-    a.n[at] = __fadd_rn(no, g2);
+    const float zn = __fadd_rn(o1, step);
+    a.z[at] = zn;
+    a.n[at] = nn;
     if (a.dz != nullptr) {
       a.dz[at] = step;
-      a.dn[at] = g2;
+      a.dn[at] = __fmul_rn(g, g);
     }
+    zero = neg_zero(zn) || neg_zero(nn);
   } else {
-    const float wo = o1;
-    const float g = __fadd_rn(sum, reg_of(wo, a.reg, a.coef));
-    const float d = __fmul_rn(g, a.scale);
-    a.w[at] = __fsub_rn(wo, d);
-    if (a.delta_end != nullptr) a.delta_end[(int64_t)end * a.C + c] = d;
+    float wn;
+    if (a.fused) {
+      wn = __fmaf_rn(-g, a.scale, o1);
+    } else {
+      const float d = __fmul_rn(g, a.scale);
+      wn = __fsub_rn(o1, d);
+      if (a.delta_end != nullptr) a.delta_end[end * a.C + c] = d;
+    }
+    a.w[at] = wn;
+    zero = neg_zero(wn);
   }
+  if (zero && a.plus && a.settle != nullptr) a.settle[a.epoch & 1] = a.epoch;
 }
 
-template <bool FIRST>
-__device__ __forceinline__ int32_t key_of(const Apply& a, int64_t i) {
-  if (i < 0 || i >= a.len) return -1;
-  const int32_t k = a.keys[i];
-  return FIRST ? (k < a.rows ? k : -1) : k;
+__device__ __forceinline__ int32_t key_at(const Apply& a, int64_t i) {
+  return (i >= 0 && i < a.len) ? a.keys[i] : -1;
 }
 
-// One level of the segmented sum: a warp a tile of 256 positions (level
-// 0: sorted keys; above: slots), a lane 8 consecutive ones. Each lane
-// sums its runs in position order; a run that lies inside the lane is
-// complete and updates its row at once; the runs open at the lanes'
-// ends are summed over the lanes by a segmented scan (a fixed tree);
-// a run that lies inside the tile updates its row from the lane where
-// it ends; a run that crosses the tile's first or last position leaves
-// its partial sum in the tile's slots for the next level. One writer a
-// row, sums in an order fixed by the data.
-template <bool FIRST>
-__global__ void __launch_bounds__(kThreads) lr_level(Apply a) {
-  const int lane = threadIdx.x & 31;
+// Runs, a warp a tile of 256 sorted positions, a lane 8 consecutive
+// ones. A run that lies inside the tile is summed by the lane of its
+// head, from its regularization term in position order (the terms from
+// the warp's shared row), and updated at once; a run that leaves the
+// tile is listed for lr_long (summing the short ones here from memory
+// made lr_runs slower by more than it saved lr_long). For those, each tile also records, per
+// column, whether its first and its last segment (the positions of its
+// first and its last key) hold a nonzero term and a +0 term.
+__global__ void __launch_bounds__(kThreads) lr_runs(Apply a) {
+  __shared__ float s_term[kThreads / 32][kSpan];
+  __shared__ int32_t s_key[kThreads / 32][kSpan];
+  const int lane = threadIdx.x & 31, wib = threadIdx.x >> 5;
   const int64_t tile = ((int64_t)blockIdx.x * kThreads + threadIdx.x) >> 5;
   const int64_t lo = tile * kSpan;
   if (lo >= a.len) return;  // the whole warp
-  const int64_t mine = lo + lane * kRun;
-  int32_t key[kRun], tag[kRun];
-  float val[kRun];
-  int32_t bix[kRun];
+  const int64_t hi = (a.len - lo < kSpan ? a.len - lo : kSpan);  // positions
+  int32_t key[kRun];
 #pragma unroll
   for (int j = 0; j < kRun; ++j) {
-    const int64_t i = mine + j;
-    key[j] = key_of<FIRST>(a, i);
-    tag[j] = FIRST ? (int32_t)i : (i < a.len ? a.ends[i] : -1);
-    val[j] = 0.f;
-    bix[j] = 0;
-    if (FIRST && key[j] >= 0) {
-      const int32_t pos = a.order[i];
-      val[j] = a.values[pos];
-      bix[j] = pos / a.K;
-    }
+    const int at = lane * kRun + j;
+    key[j] = at < hi ? a.keys[lo + at] : -1;
+    s_key[wib][at] = key[j];
   }
-  const int32_t before = key_of<FIRST>(a, lo - 1);
-  const int32_t after = key_of<FIRST>(a, lo + kSpan);
-  const int32_t tile_first = __shfl_sync(kFull, key[0], 0);
-  const int32_t tile_last = __shfl_sync(kFull, key[kRun - 1], 31);
-  const bool cross_left = tile_first >= 0 && tile_first == before;
-  const bool cross_right = tile_last >= 0 && tile_last == after;
-  int32_t next_first = __shfl_down_sync(kFull, key[0], 1);
-  if (lane == 31) next_first = after;
-  const int32_t prev_last = __shfl_up_sync(kFull, key[kRun - 1], 1);
-  const bool continues = lane > 0 && key[0] >= 0 && key[0] == prev_last;
-  if (a.next_keys != nullptr && lane == 0) {
-    a.next_keys[2 * tile] = cross_left ? tile_first : -1;
-    a.next_keys[2 * tile + 1] = cross_right ? tile_last : -1;
-    if (!cross_left) a.next_ends[2 * tile] = -1;
-    a.next_ends[2 * tile + 1] = -1;
-  }
-  if (FIRST && a.tile_ends != nullptr) {
-    int ends = 0;
+  __syncwarp();
+  const int32_t first = s_key[wib][0], last = s_key[wib][hi - 1];
+  const bool cross_left = first < a.rows && key_at(a, lo - 1) == first;
+  const bool cross_right = last < a.rows && key_at(a, lo + hi) == last;
+  bool head[kRun];
+  int ends = 0;
 #pragma unroll
-    for (int j = 0; j < kRun; ++j) {
-      const int32_t nx = j + 1 < kRun ? key[j + 1] : next_first;
-      ends += key[j] >= 0 && key[j] != nx;
+  for (int j = 0; j < kRun; ++j) {
+    const int at = lane * kRun + j;
+    const int32_t prev = at > 0 ? s_key[wib][at - 1] : key_at(a, lo - 1);
+    const int32_t next = at + 1 < hi ? s_key[wib][at + 1] : key_at(a, lo + hi);
+    const bool valid = at < hi && key[j] < a.rows;
+    head[j] = valid && key[j] != prev;
+    ends += valid && key[j] != next;
+    // A head whose run leaves the tile is lr_long's.
+    if (head[j] && key[j] == last && cross_right) {
+      head[j] = false;
+      a.long_heads[atomicAdd(a.long_count, 1)] = (int32_t)(lo + at);
     }
+  }
+  if (a.tile_ends != nullptr) {
     ends = (int)warp_sum((float)ends);
     if (lane == 0) a.tile_ends[tile] = ends;
   }
-  const float cnt = FIRST ? *a.count : 1.f;
+  const float cnt = *a.count;
   for (int c = 0; c < a.C; ++c) {
-    float t[kRun];
+    bool nz_first = false, pz_first = false, nz_last = false,
+         pz_last = false;
 #pragma unroll
     for (int j = 0; j < kRun; ++j) {
-      t[j] = 0.f;
-      if (key[j] >= 0) {
-        t[j] = FIRST ? __fdiv_rn(__fmul_rn(val[j],
-                                           a.diff[(int64_t)bix[j] * a.C + c]),
-                                 cnt)
-                     : a.vals[(mine + j) * a.C + c];
+      const int at = lane * kRun + j;
+      const bool valid = at < hi && key[j] < a.rows;
+      const float t = valid ? term_of(a, lo + at, c, cnt) : 0.f;
+      s_term[wib][at] = t;
+      if (valid && key[j] == first) {
+        nz_first |= t != 0.f;
+        pz_first |= __float_as_uint(t) == 0u;
+      }
+      if (valid && key[j] == last) {
+        nz_last |= t != 0.f;
+        pz_last |= __float_as_uint(t) == 0u;
       }
     }
-    // This lane's runs in position order. A run that ends at item j and
-    // is complete in the tile leaves its sum in fin[j] (bit j of done);
-    // the rows' old values are loaded together afterwards.
-    float fin[kRun];
-    unsigned done = 0;
-    float acc = t[0], first_sum = 0.f;
-    bool first_closed = false;
-    int first_at = 0;
-#pragma unroll
-    for (int j = 1; j < kRun; ++j) {
-      if (key[j] != key[j - 1]) {
-        if (!first_closed) {
-          first_sum = acc;
-          first_closed = true;
-          first_at = j - 1;
-        } else if (key[j - 1] >= 0) {
-          fin[j - 1] = acc;
-          done |= 1u << (j - 1);
-        }
-        acc = t[j];
-      } else {
-        acc = __fadd_rn(acc, t[j]);
-      }
+    const unsigned full = 0xffffffffu;
+    nz_first = __any_sync(full, nz_first);
+    pz_first = __any_sync(full, pz_first);
+    nz_last = __any_sync(full, nz_last);
+    pz_last = __any_sync(full, pz_last);
+    if (lane == 0 && (cross_left || cross_right)) {
+      uint8_t* fl = a.seg_flags + (tile * 2) * a.C + c;
+      fl[0] = (nz_first ? kNonzero : 0) | (pz_first ? kPlusZero : 0);
+      fl[a.C] = (nz_last ? kNonzero : 0) | (pz_last ? kPlusZero : 0);
     }
-    // The runs open at the lanes' ends, summed over the lanes.
-    float S = acc;
-    int F = first_closed || !continues;
-    for (int o = 1; o < 32; o <<= 1) {
-      const float up_s = __shfl_up_sync(kFull, S, o);
-      const int up_f = __shfl_up_sync(kFull, F, o);
-      if (lane >= o) {
-        if (!F) S = __fadd_rn(up_s, S);
-        F |= up_f;
-      }
-    }
-    const float carry = __shfl_up_sync(kFull, S, 1);
-    float* slot0 = a.next_vals + (2 * tile) * a.C + c;
-    float* slot1 = a.next_vals + (2 * tile + 1) * a.C + c;
-    if (first_closed && key[0] >= 0) {
-      // The lane's first run ended inside the lane.
-      const float total = continues ? __fadd_rn(carry, first_sum)
-                                    : first_sum;
-#pragma unroll
-      for (int j = 0; j < kRun - 1; ++j) {
-        if (j != first_at) continue;
-        if (cross_left && key[0] == tile_first) {
-          *slot0 = total;
-          if (c == 0) a.next_ends[2 * tile] = tag[j];
-        } else {
-          fin[j] = total;
-          done |= 1u << j;
-        }
-      }
-    }
-    const int32_t tail = key[kRun - 1];
-    if (tail >= 0 && tail != next_first) {
-      // The lane's last run ends at the lane's end.
-      if (cross_left && tail == tile_first) {
-        *slot0 = S;
-        if (c == 0) a.next_ends[2 * tile] = tag[kRun - 1];
-      } else {
-        fin[kRun - 1] = S;
-        done |= 1u << (kRun - 1);
-      }
-    } else if (lane == 31 && cross_right) {
-      // It runs on into the next tile.
-      if (cross_left && tail == tile_first) {
-        *slot0 = S;
-        *slot1 = 0.f;
-        if (c == 0) a.next_ends[2 * tile] = -1;
-      } else {
-        *slot1 = S;
-      }
-    }
-    // The complete runs' rows: every old value loaded, then updated.
-    float o1[kRun], o2[kRun];
-#pragma unroll
-    for (int j = 0; j < kRun; ++j) {
-      o1[j] = o2[j] = 0.f;
-      if (!(done >> j & 1u)) continue;
-      const int64_t at = (int64_t)key[j] * a.C + c;
-      if (a.ftrl_on) {
-        o1[j] = a.z[at];
-        o2[j] = a.n[at];
-      } else {
-        o1[j] = a.w[at];
-      }
-    }
+    __syncwarp();
+    // This lane's runs: the old values loaded together, then summed.
+    float o1[kRun], o2[kRun], wo[kRun], g[kRun];
 #pragma unroll
     for (int j = 0; j < kRun; ++j)
-      if (done >> j & 1u) finalize(a, key[j], c, fin[j], tag[j], o1[j], o2[j]);
+      if (head[j]) g[j] = row_start(a, key[j], c, o1[j], o2[j], wo[j]);
+#pragma unroll
+    for (int j = 0; j < kRun; ++j) {
+      if (!head[j]) continue;
+      int at = lane * kRun + j;
+      float acc = g[j];
+      do {
+        acc = __fadd_rn(acc, s_term[wib][at]);
+        ++at;
+      } while (at < hi && s_key[wib][at] == key[j]);
+      finalize(a, key[j], c, acc, lo + at - 1, o1[j], o2[j], wo[j]);
+    }
+    __syncwarp();
+  }
+}
+
+// The runs that leave their tile (lr_runs' list), a block each: in
+// position order from the regularization term, as the reference's scatter
+// loop adds them. Between two tiles with a nonzero term, a stretch of
+// tiles whose terms are all zeros adds as ONE zero (+0 if any of them is
+// +0, else -0: adding zeros changes only a zero sum, and only its sign),
+// so a long run of zero terms (the padding key's) costs its flags; the
+// tiles with a nonzero term are loaded kBatch at a time and summed by one
+// thread.
+__global__ void __launch_bounds__(kThreads) lr_long(Apply a) {
+  __shared__ __align__(16) float s_term[kBatch][kSpan];
+  __shared__ int64_t s_tile[kBatch];
+  __shared__ int s_nb, s_end_tile, s_tail, s_cursor;
+  __shared__ unsigned s_nz[kThreads / 32], s_pz[kThreads / 32];
+  const int tid = threadIdx.x, lane = tid & 31, wib = tid >> 5;
+  const int64_t tiles = (a.len + kSpan - 1) / kSpan;
+  const float cnt = *a.count;
+  for (int slot = blockIdx.x; slot < *a.long_count; slot += gridDim.x) {
+    const int64_t h = a.long_heads[slot];
+    const int32_t key = a.keys[h];
+    const int64_t th = h / kSpan;
+    // The run's last tile: the tile before the first later tile that
+    // does not start with the key.
+    if (tid == 0) s_end_tile = (int)(tiles - 1);
+    __syncthreads();
+    for (int64_t base = th + 1; base < tiles; base += kThreads) {
+      const int64_t t = base + tid;
+      if (t < tiles && a.keys[t * kSpan] != key) atomicMin(&s_end_tile, (int)(t - 1));
+      if (__syncthreads_or(s_end_tile < tiles - 1)) break;
+    }
+    const int64_t te = s_end_tile;
+    {
+      const int64_t p = te * kSpan + tid;
+      const int in_run = p < a.len && a.keys[p] == key;
+      const int tail = __syncthreads_count(in_run);
+      if (tid == 0) s_tail = tail;
+    }
+    __syncthreads();
+    const int64_t e = te * kSpan + s_tail - 1;
+    for (int c = 0; c < a.C; ++c) {
+      float o1 = 0.f, o2 = 0.f, wo = 0.f, acc = 0.f;
+      if (tid == 0) acc = row_start(a, key, c, o1, o2, wo);
+      // The run's tiles [th, te] in windows of kThreads: their flags (the
+      // head tile's last segment, the others' first).
+      for (int64_t w0 = th; w0 <= te; w0 += kThreads) {
+        const int64_t t = w0 + tid;
+        uint8_t fl = 0;
+        if (t <= te) fl = a.seg_flags[(t * 2 + (t == th ? 1 : 0)) * a.C + c];
+        const unsigned nzb = __ballot_sync(0xffffffffu, fl & kNonzero);
+        const unsigned pzb = __ballot_sync(0xffffffffu, fl & kPlusZero);
+        if (lane == 0) {
+          s_nz[wib] = nzb;
+          s_pz[wib] = pzb;
+        }
+        __syncthreads();
+        const int span = (int)(te - w0 + 1 < kThreads ? te - w0 + 1 : kThreads);
+        if (tid == 0) s_cursor = 0;  // the window's first tile not added
+        for (;;) {
+          // The next kBatch tiles with a nonzero term.
+          if (tid == 0) {
+            int nb = 0;
+            for (int i = s_cursor; i < span && nb < kBatch; ++i)
+              if (s_nz[i >> 5] >> (i & 31) & 1u) s_tile[nb++] = w0 + i;
+            s_nb = nb;
+          }
+          __syncthreads();
+          const int nb = s_nb;
+          if (wib < nb) {  // warp b loads tile s_tile[b]'s terms in the run
+            const int64_t t = s_tile[wib];
+#pragma unroll
+            for (int j = 0; j < kRun; ++j) {
+              const int64_t p = t * kSpan + lane * kRun + j;
+              s_term[wib][lane * kRun + j] =
+                  (p >= h && p <= e) ? term_of(a, p, c, cnt) : 0.f;
+            }
+          }
+          __syncthreads();
+          if (tid == 0) {
+            // The zero stretch before each loaded tile, then its terms;
+            // after the window's last one, the stretch to the window's end.
+            for (int b = 0; b <= nb; ++b) {
+              if (b == nb && nb == kBatch) break;
+              const int upto = b < nb ? (int)(s_tile[b] - w0) : span;
+              bool any = false, plus = false;
+              for (int i = s_cursor; i < upto; ++i) {
+                any = true;
+                plus |= (s_pz[i >> 5] >> (i & 31)) & 1u;
+              }
+              if (any) acc = __fadd_rn(acc, plus ? 0.f : -0.f);
+              s_cursor = upto;
+              if (b == nb) break;
+              const int64_t t = s_tile[b];
+              const int64_t p0 = t * kSpan > h ? t * kSpan : h;
+              const int64_t p1 =
+                  t * kSpan + kSpan - 1 < e ? t * kSpan + kSpan - 1 : e;
+              // Sixteen terms (four 16-byte loads) in flight before their
+              // sixteen adds.
+              const int off = (int)(p0 - t * kSpan);
+              const int end = (int)(p1 - t * kSpan) + 1;
+              const float* row = s_term[b];
+              int q = off;
+              for (; q < end && (q & 3); ++q) acc = __fadd_rn(acc, row[q]);
+              for (; q + 16 <= end; q += 16) {
+                float4 x[4];
+#pragma unroll
+                for (int u = 0; u < 4; ++u)
+                  x[u] = reinterpret_cast<const float4*>(row + q)[u];
+#pragma unroll
+                for (int u = 0; u < 4; ++u) {
+                  acc = __fadd_rn(acc, x[u].x);
+                  acc = __fadd_rn(acc, x[u].y);
+                  acc = __fadd_rn(acc, x[u].z);
+                  acc = __fadd_rn(acc, x[u].w);
+                }
+              }
+              for (; q < end; ++q) acc = __fadd_rn(acc, row[q]);
+              s_cursor = upto + 1;
+            }
+          }
+          __syncthreads();
+          if (nb < kBatch) break;
+        }
+      }
+      if (tid == 0) finalize(a, key, c, acc, e, o1, o2, wo);
+    }
+    __syncthreads();
+  }
+}
+
+// The settle pass of a SettleFlag (ROADMAP C12): where its slot of the
+// last step holds epoch - 1, every element of a row this step does not
+// touch that the reference's dense update changes is settled: a zero or
+// subnormal becomes +0 ("plus"), else a subnormal becomes its sign's
+// zero. The row is looked up in the sorted keys. Nothing to do, and one
+// load a block, when the flag is down.
+__device__ __forceinline__ bool unsettled(float x, int plus) {
+  const uint32_t b = __float_as_uint(x);
+  return (b & 0x7f800000u) == 0 && (b & (plus ? 0xffffffffu : 0x7fffffu));
+}
+
+__global__ void __launch_bounds__(kThreads) lr_settle(Apply a) {
+  if (a.epoch < 1 || a.settle[(a.epoch - 1) & 1] != a.epoch - 1) return;
+  const int64_t total = a.rows * a.C;
+  for (int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x; i < total;
+       i += (int64_t)gridDim.x * kThreads) {
+    float* parts[2] = {a.ftrl_on ? a.z : a.w, a.ftrl_on ? a.n : nullptr};
+    bool any = false;
+    for (float* x : parts) any |= x != nullptr && unsettled(x[i], a.plus);
+    if (!any) continue;
+    const int32_t row = (int32_t)(i / a.C);
+    int64_t lo = 0, hi = a.len;  // the first key >= row
+    while (lo < hi) {
+      const int64_t mid = (lo + hi) >> 1;
+      if (a.keys[mid] < row) lo = mid + 1; else hi = mid;
+    }
+    if (lo < a.len && a.keys[lo] == row) continue;  // touched
+    for (float* x : parts)
+      if (x != nullptr && unsettled(x[i], a.plus))
+        x[i] = a.plus ? 0.f
+                      : __uint_as_float(__float_as_uint(x[i]) & 0x80000000u);
   }
 }
 
 // The touched rows in order and their delta rows (PS push): a warp a
-// level-0 tile; rows past the U touched ones read R.
+// tile; rows past the U touched ones read R.
 __global__ void __launch_bounds__(kThreads) lr_rows(
     const int32_t* __restrict__ keys, int64_t len, int64_t rows, int C,
     const int32_t* __restrict__ tile_ends, int64_t tiles,
@@ -498,12 +670,12 @@ extern "C" cudaError_t mv_sparse_lr_forward(
     const float* w, const float* z, const float* n, int64_t rows, int C,
     const int32_t* keys, const float* values, int B, int K,
     const int32_t* labels, const float* weights, int act, int ftrl_on,
-    float alpha, float beta, float l1, float l2, float* pred, float* diff,
+    float inv_alpha, float beta, float l1, float l2, float* pred, float* diff,
     float* loss, int32_t* hit, cudaStream_t stream) {
   if (B <= 0) return cudaSuccess;
   const size_t smem = (size_t)kWarps * C * sizeof(float);
   if (smem > 48 * 1024) return cudaErrorInvalidValue;
-  const Ftrl f{alpha, beta, l1, l2};
+  const Ftrl f{inv_alpha, beta, l1, l2};
   const unsigned blocks = (unsigned)((B + kWarps - 1) / kWarps);
   sparse_lr_forward_kernel<<<blocks, kThreads, smem, stream>>>(
       w, z, n, rows, C, keys, values, B, K, labels, weights, act, ftrl_on, f,
@@ -511,52 +683,51 @@ extern "C" cudaError_t mv_sparse_lr_forward(
   return cudaGetLastError();
 }
 
-// The slots of the levels: cap_a [2 * ceil(len / 256)] for levels 1, 3,
-// ..., the rest for 2, 4, ... (keys, ends and C partials each).
-// delta_end [len, C], tile_ends [ceil(len / 256)], rows_out [len] and
-// delta_out [len, C] go together: given, the touched rows and their
-// delta rows are written; null, none is.
+// scratch (int32): long_heads [tiles], long_count [1], tile_ends [tiles],
+// then seg_flags [tiles][2][C] bytes (tiles = ceil(len / 256)). settle:
+// SettleFlag's slots, or null; epoch: this step's; plus: its mode.
+// fused: sgd's w -= g * scale as one fused multiply-add (LocalModel),
+// else the delta rounded (PSModel). delta_end [len, C], rows_out [len]
+// and delta_out [len, C] go together: given, the touched rows and their
+// delta rows are written.
 extern "C" cudaError_t mv_sparse_lr_apply(
     float* w, float* z, float* n, int C, int64_t rows, const int32_t* keys,
     const int32_t* order, int64_t len, const float* values,
     const float* diff, int K, const float* count, int reg, float coef,
-    int ftrl_on, float alpha, float beta, float l1, float l2, float scale,
-    float* dz, float* dn, int32_t* slot_keys, int32_t* slot_ends,
-    float* slot_vals, int64_t cap_a, float* delta_end, int32_t* tile_ends,
+    int ftrl_on, float inv_alpha, float beta, float l1, float l2,
+    float scale, int fused, float* dz, float* dn, int32_t* scratch,
+    int32_t* settle, int epoch, int plus, float* delta_end,
     int64_t* rows_out, float* delta_out, cudaStream_t stream) {
-  if (len <= 0) return cudaSuccess;
-  Apply a{w,     z,    n,    C,       rows,   keys,   order,  nullptr,
-          nullptr, len, values, diff, K,      count,  reg,    coef,
-          ftrl_on, Ftrl{alpha, beta, l1, l2}, scale,  delta_end, dz, dn,
-          nullptr, nullptr, nullptr, tile_ends};
-  const int64_t tiles0 = (len + kSpan - 1) / kSpan;
-  for (int level = 0;; ++level) {
-    const int64_t tiles = (a.len + kSpan - 1) / kSpan;
-    const int64_t at = level % 2 == 0 ? 0 : cap_a;
-    const bool last = tiles == 1;
-    a.next_keys = last ? nullptr : slot_keys + at;
-    a.next_ends = last ? nullptr : slot_ends + at;
-    a.next_vals = last ? nullptr : slot_vals + at * C;
-    const unsigned blocks = (unsigned)((tiles * 32 + kThreads - 1) / kThreads);
-    if (level == 0) {
-      lr_level<true><<<blocks, kThreads, 0, stream>>>(a);
-    } else {
-      lr_level<false><<<blocks, kThreads, 0, stream>>>(a);
-    }
-    cudaError_t err = cudaGetLastError();
+  const int64_t tiles = (len + kSpan - 1) / kSpan;
+  int32_t* long_heads = scratch;
+  int32_t* long_count = scratch + tiles;
+  int32_t* tile_ends = rows_out != nullptr ? long_count + 1 : nullptr;
+  uint8_t* seg_flags = reinterpret_cast<uint8_t*>(long_count + 1 + tiles);
+  Apply a{w,       z,        n,         C,          rows,       keys,
+          order,   len,      values,    diff,       K,          count,
+          reg,     coef,     ftrl_on,   Ftrl{inv_alpha, beta, l1, l2},
+          scale,   fused,    delta_end, dz,         dn,         tile_ends,
+          long_heads, long_count, seg_flags, settle, epoch, plus};
+  cudaError_t err;
+  if (settle != nullptr) {
+    lr_settle<<<4 * 132, kThreads, 0, stream>>>(a);
+    err = cudaGetLastError();
     if (err != cudaSuccess) return err;
-    if (last) break;
-    a.keys = a.next_keys;
-    a.ends = a.next_ends;
-    a.vals = a.next_vals;
-    a.order = nullptr;
-    a.len = 2 * tiles;
-    a.tile_ends = nullptr;
   }
-  if (rows_out == nullptr) return cudaSuccess;
-  const unsigned blocks = (unsigned)((tiles0 * 32 + kThreads - 1) / kThreads);
+  if (len <= 0) return cudaSuccess;
+  err = cudaMemsetAsync(long_count, 0, sizeof(int32_t), stream);
+  if (err != cudaSuccess) return err;
+  const unsigned blocks = (unsigned)((tiles * 32 + kThreads - 1) / kThreads);
+  lr_runs<<<blocks, kThreads, 0, stream>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  // At most one run leaves each tile; a block a listed run.
+  const unsigned long_blocks = (unsigned)(tiles < 4 * 132 ? tiles : 4 * 132);
+  lr_long<<<long_blocks, kThreads, 0, stream>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || rows_out == nullptr) return err;
   lr_rows<<<blocks, kThreads, 0, stream>>>(keys, len, rows, C, tile_ends,
-                                           tiles0, delta_end, rows_out,
+                                           tiles, delta_end, rows_out,
                                            delta_out);
   return cudaGetLastError();
 }

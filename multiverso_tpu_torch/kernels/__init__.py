@@ -31,8 +31,9 @@ sparse_lr_forward  ``logreg.py``             ``make_sparse_step`` forward
                                              (B15)
 sparse_lr_apply    ``logreg.py``             ``make_sparse_step`` gradient
                                              + the models' updates (B15)
-key_sort           ``keysort.py``            none: K12's id sort (stable,
-                                             by row, on the card)
+key_sort           ``keysort.py``            none: K12's, K13's and K14's
+                                             id sort (stable, by row, on
+                                             the card)
 row_rule_apply     ``rules.py``              ``Momentum/AdaGrad/DCASGDRule.
                                              rows`` via ``apply_rows`` (B12)
 rows_apply_gather  ``rules.py``              ``UpdateEngine.

@@ -80,14 +80,14 @@ SIGNATURES = {
     "mv_sparse_lr_forward": [_P, _P, _P, _I64, _I, _P, _P, _I, _I, _P, _P,
                              _I, _I, _F, _F, _F, _F, _P, _P, _P, _P, _P],
     "mv_sparse_lr_apply": [_P, _P, _P, _I, _I64, _P, _P, _I64, _P, _P, _I,
-                           _P, _I, _F, _I, _F, _F, _F, _F, _F, _P, _P, _P,
-                           _P, _P, _I64, _P, _P, _P, _P, _P],
+                           _P, _I, _F, _I, _F, _F, _F, _F, _F, _I, _P, _P,
+                           _P, _P, _I, _I, _P, _P, _P, _P],
     "mv_key_sort": [_P, _I64, _I64, _I, _P, _P, _P, _P, _P, _P, _P],
     "mv_row_rule_apply": [_I, _P, _I64, _I64, _P, _I, _I, _P, _P, _I64, _P,
-                          _I64, _I, _F, _F, _F, _F, _I, _P],
+                          _I64, _I, _F, _F, _F, _F, _I, _I, _P],
     "mv_rows_apply_gather": [_I, _P, _I64, _I64, _P, _I, _I, _P, _P, _P,
-                             _I64, _P, _I64, _I, _F, _F, _F, _F, _I, _P,
-                             _I64, _P, _I, _I, _P, _P, _I64, _P],
+                             _I64, _P, _I64, _I, _F, _F, _F, _F, _I, _I,
+                             _P, _I64, _P, _I, _I, _P, _P, _I64, _P],
 }
 
 

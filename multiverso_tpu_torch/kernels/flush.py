@@ -78,6 +78,15 @@ def fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     return flush(s.float())
 
 
+def sqrt(x: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded float32 square root (the card's
+    ``__fsqrt_rn``, the reference's ``vsqrtss``), flushed: taken in
+    float64 and rounded once (53 >= 2 * 24 + 2 bits: the double rounding
+    is innocuous); ``torch.sqrt`` of a float32 CPU tensor is not
+    correctly rounded for some inputs."""
+    return flush(torch.sqrt(flush(x).double()).float())
+
+
 def _inexact(x: torch.Tensor) -> torch.Tensor:
     """Where a float32 is nonzero and below 2^-103 in magnitude: a sum
     of such values can be subnormal; a sum of the others cannot."""

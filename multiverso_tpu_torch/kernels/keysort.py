@@ -3,7 +3,9 @@
 It replaces no program of the reference (JAX's ``.at[keys].add`` needs
 no sort); the port's kernels that sum a row's occurrences in an order
 fixed by the data need the flat positions grouped by row in position
-order. K12 ``sparse_lr_apply`` runs on it (``logreg.py``).
+order. K12 ``sparse_lr_apply`` (``logreg.py``), K13 ``row_rule_apply``
+and K14's stateful arms on ids that can repeat (``rules.py``) run on
+it.
 
 Keys follow JAX's index rules: an id in [-R, -1] wraps to ``id + R``,
 an id in [0, R) stays, every other id becomes R and sorts last. Returns

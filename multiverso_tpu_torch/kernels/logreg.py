@@ -14,15 +14,24 @@ Together they replace ``make_sparse_step``
   the per-sample hit. ``w[keys]`` follows JAX's gather: ids in [-R, -1]
   wrap, then every id clamps into [0, R-1].
 - ``sparse_lr_apply`` (K12) adds ``values * diff / count`` over the
-  batch's UNIQUE touched rows, plus the regularization of their old
+  batch's UNIQUE touched rows into the regularization of their old
   weights, and applies the sgd or FTRL update to those rows in place.
   The touched rows follow JAX's ``.at[keys].add``: ids in [-R, -1] wrap,
-  every other out-of-range id is dropped. On the card the ids are
-  sorted by K20 (``keysort.py``) and the kernel sums each row's run of
-  sorted positions in a fixed order, level by level (K3's levels over
-  tiles of ``SPAN``: ``rows.scatter_levels``),
-  with no host sync; the plain version prepares them with ``touched_rows``
-  (a stable sort into a CSR of occurrences).
+  every other out-of-range id is dropped. Each row's terms add in
+  position order, as the reference's CPU scatter loop adds them: on the
+  card the ids are sorted by K20 (``keysort.py``, stable), the lane at
+  a run's head sums a run inside a tile of ``SPAN`` sorted positions, a
+  block each run that leaves its tile (a stretch of tiles whose terms
+  are all zeros adds as one zero), with no host sync; the plain version
+  prepares them with ``touched_rows`` (a stable sort into a CSR of
+  occurrences).
+
+Sums, products and the sigmoid are formed as the reference's compiled
+programs form them (ROADMAP C13), so both match it bit for bit: the
+products it fuses into adds (``LocalModel``'s ``w - g * lr``, FTRL's ``n
++ g * g`` and ``weights_of``'s ``+ lambda2``), its division by the
+constant ``alpha`` as a multiplication by ``1/alpha``, and its
+polynomial exp (``sigmoid``).
 
 On a CUDA tensor each wrapper launches its kernel
 (``csrc/sparse_logreg.cu``; both bound by bytes) or raises; on a CPU
@@ -40,15 +49,15 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Optional, Tuple, Union
 
+import numpy as np
 import torch
 
 from . import build
 from ._launch import is_plain, require, stream_of
-from .flush import add_rows, plus_zero
+from .flush import add_rows, fma, plus_zero, sqrt
 from .flush import flush as f
 from .keysort import key_sort
 from .objective import dot
-from .rows import scatter_levels
 
 ACT_LINEAR, ACT_SIGMOID, ACT_SOFTMAX = 0, 1, 2
 REG_NONE, REG_L1, REG_L2 = 0, 1, 2
@@ -65,6 +74,13 @@ class Ftrl:
     lambda1: float
     lambda2: float
 
+    @property
+    def inv_alpha(self) -> float:
+        """``1 / alpha`` rounded to float32: the reference's XLA turns a
+        division by the constant ``alpha`` into a multiplication by its
+        float32 reciprocal."""
+        return float(np.float32(1) / np.float32(self.alpha))
+
 
 Table = Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]
 
@@ -80,9 +96,43 @@ def onehot(labels: torch.Tensor, classes: int) -> torch.Tensor:
         classes, device=labels.device)[None, :]).to(torch.float32)
 
 
+def _f32(bits: int) -> float:
+    return float(np.array(bits, np.uint32).view(np.float32))
+
+
+# XLA's exp on the CPU (an inlined Cephes-style polynomial, read from the
+# reference's compiled programs with its constants): the input clamped,
+# 2^k split off, a degree-5 polynomial; K11's ``xla_sigmoid`` the same.
+_EXP_LO, _EXP_HI = _f32(0xC2AF999A), _f32(0x42B1999A)
+_LOG2E, _LN2_HI, _LN2_LO = _f32(0x3FB8AA3B), _f32(0x3F318000), \
+    _f32(0xB95E8083)
+_EXP_POLY = tuple(_f32(b) for b in (0x39506967, 0x3AB743CE, 0x3C088908,
+                                    0x3D2AA9C1, 0x3E2AAAAA)) + (0.5,)
+
+
+def sigmoid(z: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.sigmoid`` as the reference's XLA compiles it on the CPU
+    (ROADMAP C13): ``1 / (exp(-z) + 1)`` with XLA's polynomial exp, its
+    products fused into the adds that follow them as the machine code
+    fuses them (the scaling by 2^k into the ``+ 1``), every operation
+    flushed."""
+    c = lambda v: _scalar(v, z)  # noqa: E731
+    x = -f(z)
+    x = torch.where((x >= _EXP_LO) | torch.isnan(x), x, c(_EXP_LO))
+    x = torch.where((x <= _EXP_HI) | torch.isnan(x), x, c(_EXP_HI))
+    k = torch.clamp(torch.floor(fma(x, c(_LOG2E), c(0.5))), -127.0, 127.0)
+    r = fma(-k, c(_LN2_LO), fma(-k, c(_LN2_HI), x))
+    y = c(_EXP_POLY[0])
+    for p in _EXP_POLY[1:]:
+        y = fma(y, r, c(p))
+    e1 = f(fma(y, f(r * r), r) + 1)
+    scale = ((k.to(torch.int32) + 127) << 23).view(torch.float32)
+    return f(c(1.0) / fma(e1, scale, c(1.0)))
+
+
 def activation(logits: torch.Tensor, act: int) -> torch.Tensor:
     if act == ACT_SIGMOID:
-        return f(torch.sigmoid(logits))
+        return sigmoid(logits)
     if act == ACT_SOFTMAX:
         return f(torch.softmax(logits, dim=-1))
     return logits
@@ -131,12 +181,15 @@ def _scalar(x: float, like: torch.Tensor) -> torch.Tensor:
 def ftrl_weights(z: torch.Tensor, n: torch.Tensor, ftrl: Ftrl
                  ) -> torch.Tensor:
     """FTRL's ``weights_of`` (model.py:211-213), every operation
-    flushed."""
+    flushed, as the reference's XLA compiles it (ROADMAP C13): the
+    division by ``alpha`` a multiplication by ``inv_alpha``, fused with
+    the add of ``lambda2``: ``-shrunk / fma(sqrt(n) + beta, 1/alpha,
+    lambda2)``."""
     z, n = f(z), f(n)
     shrunk = f(torch.sign(z) * torch.clamp(f(torch.abs(z) - ftrl.lambda1),
                                            min=0.0))
-    den = f(f(f(ftrl.beta + f(torch.sqrt(n))) / _scalar(ftrl.alpha, z))
-            + ftrl.lambda2)
+    den = fma(f(sqrt(n) + ftrl.beta), _scalar(ftrl.inv_alpha, z),
+              _scalar(ftrl.lambda2, z))
     return f(-shrunk / den)
 
 
@@ -224,7 +277,7 @@ def sparse_lr_forward(table: Table, keys: torch.Tensor,
         None if ftrl is None else table[0].data_ptr(),
         None if ftrl is None else table[1].data_ptr(), w.shape[0], C,
         keys.data_ptr(), values.data_ptr(), B, K, _ptr(labels),
-        _ptr(weights), act, int(ftrl is not None), f.alpha, f.beta,
+        _ptr(weights), act, int(ftrl is not None), f.inv_alpha, f.beta,
         f.lambda1, f.lambda2, pred.data_ptr(), _ptr(diff), _ptr(loss),
         _ptr(hit), stream_of(w)), "sparse_lr_forward")
     sparse_lr_forward.launches += 1
@@ -273,18 +326,44 @@ def touched_rows(keys: torch.Tensor, rows: int) -> Touched:
     return Touched(uniq, counts, occ, starts)
 
 
+class SettleFlag:
+    """Whether a model's next sparse step settles the rows its batch does
+    not touch as the reference's dense update does (``settle_untouched``,
+    ROADMAP C12): after state came in from outside the step (a load, a
+    pull: ``request``), and, under a regularizer and in FTRL's state
+    (``plus``), after K12 wrote a -0 into a touched row. Two int32 slots
+    on the table's device, read and written by the kernels (no host
+    sync): the call of step ``epoch`` settles where slot ``(epoch - 1) %
+    2`` holds ``epoch - 1``, and writes ``epoch`` into slot ``epoch % 2``
+    when it writes a -0 under ``plus``."""
+
+    def __init__(self, device, plus: bool):
+        self.slots = torch.full((2,), -1, dtype=torch.int32, device=device)
+        self.epoch = 1
+        self.plus = plus
+
+    def request(self) -> None:
+        """Have the next step settle (no host sync)."""
+        e = self.epoch - 1
+        self.slots[e % 2] = e
+
+    def raised(self) -> bool:
+        """Whether the next step settles (a host read)."""
+        e = self.epoch - 1
+        return int(self.slots[e % 2]) == e
+
+
 def settle_untouched(table: Table, touched: torch.Tensor,
                      plus: bool) -> None:
-    """What the reference's sparse step does to the rows its batch does
-    not touch, in place on ``w`` or FTRL's ``(z, n)``: it subtracts
-    (FTRL: adds) a dense update whose rows there are zeros, and that
-    flushes a subnormal. Under a regularizer and in FTRL's state that
-    zero is of the element's own sign or +0, so every zero and subnormal
-    becomes +0 (``plus``); else each flushes to a zero of its sign.
-    ``touched`` holds the touched rows (any order, repeats and the
-    sentinel R allowed); their rows are the step's and stay as they
-    are. Needed only where state came in from outside the step (a load,
-    a pull): the step's own results are flushed already."""
+    """Plain version of K12's settle pass: what the reference's sparse
+    step does to the rows its batch does not touch, in place on ``w`` or
+    FTRL's ``(z, n)``: it subtracts (FTRL: adds) a dense update whose
+    rows there are zeros, and that flushes a subnormal. Under a
+    regularizer and in FTRL's state that zero is of the element's own
+    sign or +0, so every zero and subnormal becomes +0 (``plus``); else
+    each flushes to a zero of its sign. ``touched`` holds the touched
+    rows (any order, repeats and the sentinel R allowed); their rows are
+    the step's and stay as they are."""
     tensors = (table,) if isinstance(table, torch.Tensor) else table
     R = tensors[0].shape[0]
     hit = torch.zeros(R + 1, dtype=torch.bool, device=touched.device)
@@ -294,17 +373,30 @@ def settle_untouched(table: Table, touched: torch.Tensor,
         torch.where(keep, x, plus_zero(x) if plus else f(x), out=x)
 
 
+def _written_zero(*written: torch.Tensor) -> bool:
+    """Whether any of the tensors holds a -0."""
+    return any(bool(((x == 0) & torch.signbit(x)).any()) for x in written)
+
+
 def sparse_lr_apply_plain(table: Table, touched: Touched,
                           values: torch.Tensor, diff: torch.Tensor,
                           count: torch.Tensor, reg: int, coef: float,
                           scale: float, ftrl: Optional[Ftrl],
                           delta_rows: bool,
                           push: Optional[Tuple[torch.Tensor, torch.Tensor]]
-                          ) -> Optional[torch.Tensor]:
+                          ) -> Tuple[Optional[torch.Tensor], bool]:
     """Plain version of K12 on the prepared ``touched`` rows, in place;
-    returns the delta rows when ``delta_rows``. Every operation flushed,
-    as the reference's (ROADMAP C12): a row's terms add in position
-    order, each add flushed (``flush.add_rows``)."""
+    returns (the delta rows when ``delta_rows``, whether a -0 was
+    written). Every operation flushed, and the sums and products formed
+    as the reference's programs form them (ROADMAP C12, C13): a row's
+    gradient starts from its regularization term (XLA folds ``zeros.
+    at[keys].add(u) + touched * reg(w)`` into one scatter-add into
+    ``touched * reg(w)``; +0 without a regularizer) and its terms add in
+    position order, each add flushed (``flush.add_rows``), as the CPU
+    scatter loop adds them. ``LocalModel``'s fused program contracts
+    ``w - g * lr`` into one fused multiply-add; ``PSModel`` (the
+    ``delta_rows`` form) rounds its delta ``g * lr`` in a program of its
+    own. FTRL contracts ``n + g * g`` and multiplies by ``1/alpha``."""
     K = values.shape[1]
     pos = touched.occ.to(torch.int64)
     seg = torch.repeat_interleave(
@@ -312,34 +404,36 @@ def sparse_lr_apply_plain(table: Table, touched: Touched,
         touched.counts)
     terms = f(f(f(values.reshape(-1)[pos][:, None]) * f(diff[pos // K]))
               / count)
-    # A row's terms add in position order from -0 (the identity: a sum
-    # of zeros is -0 only where every term is, as in the reference, whose
-    # XLA folds ``zeros.at[keys].add(u) + reg(w)`` into a scatter-add
-    # into ``reg(w)``), then the regularization, as the kernel adds them.
-    gsum = torch.full((touched.rows.numel(), diff.shape[1]), -0.0,
-                      dtype=torch.float32, device=diff.device)
-    add_rows(gsum, seg, terms)
     rows = touched.rows
     if ftrl is None:
         w_old = f(table[rows])
-        g = f(gsum + regular_grad(w_old, reg, coef))
-        d = f(g * scale)
-        table.index_copy_(0, rows, f(w_old - d))
-        return d if delta_rows else None
-    z, n = table
-    z_old, n_old = f(z[rows]), f(n[rows])
-    w_old = ftrl_weights(z_old, n_old, ftrl)
-    g = f(gsum + regular_grad(w_old, reg, coef))
+    else:
+        z, n = table
+        z_old, n_old = f(z[rows]), f(n[rows])
+        w_old = ftrl_weights(z_old, n_old, ftrl)
+    g = regular_grad(w_old, reg, coef) if reg != REG_NONE \
+        else torch.zeros_like(w_old)
+    add_rows(g, seg, terms)
+    if ftrl is None:
+        lr = _scalar(scale, g)
+        if delta_rows:
+            d = f(g * lr)
+            w_new = f(w_old - d)
+        else:
+            d, w_new = None, fma(-g, lr, w_old)
+        table.index_copy_(0, rows, w_new)
+        return d, _written_zero(w_new)
     g2 = f(g * g)
-    sigma = f(f(f(torch.sqrt(f(n_old + g2))) - f(torch.sqrt(n_old)))
-              / _scalar(ftrl.alpha, g))
+    n_new = fma(g, g, n_old)
+    sigma = f(f(sqrt(n_new) - sqrt(n_old)) * _scalar(ftrl.inv_alpha, g))
     step = f(g - f(sigma * w_old))
-    z.index_copy_(0, rows, f(z_old + step))
-    n.index_copy_(0, rows, f(n_old + g2))
+    z_new = f(z_old + step)
+    z.index_copy_(0, rows, z_new)
+    n.index_copy_(0, rows, n_new)
     if push is not None:
         push[0].index_copy_(0, rows, step)
         push[1].index_copy_(0, rows, g2)
-    return None
+    return None, _written_zero(z_new, n_new)
 
 
 def sparse_lr_apply(table: Table, keys: torch.Tensor, values: torch.Tensor,
@@ -348,30 +442,37 @@ def sparse_lr_apply(table: Table, keys: torch.Tensor, values: torch.Tensor,
                     scale: float = 1.0, ftrl: Optional[Ftrl] = None,
                     delta_rows: bool = False,
                     push: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-                    settle: Optional[bool] = None
+                    settle: Optional[SettleFlag] = None
                     ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
     """K12: the update of the rows ``keys`` touches, in place. ``table``
     is ``w [R, C]`` (sgd: ``w -= scale * g``) or ``(z, n)`` with
     ``ftrl``; ``diff [B, C]`` is K11's; ``count`` a one-element float32
     tensor, ``max(#(weight > 0), 1)``. ``push`` (FTRL) is a pair of
     zeroed ``[R, C]`` buffers that receive ``g - sigma * w`` and ``g^2``
-    at those rows. ``delta_rows`` (sgd) asks for the touched rows and
-    their ``scale * g``: returns (rows int64 [B*K]: the U touched rows
-    ascending, then R; delta [B*K, C]: the first U rows theirs), else
-    (None, None). ``settle`` (``plus``, not None) then settles the
-    untouched rows (``settle_untouched``) with the touched rows the
-    call already has. On the card the ids are sorted by K20 and nothing
-    waits for the card: the call makes no host sync."""
+    at those rows. ``delta_rows`` (sgd, the PS step) asks for the touched
+    rows and their ``scale * g``: returns (rows int64 [B*K]: the U
+    touched rows ascending, then R; delta [B*K, C]: the first U rows
+    theirs), else (None, None). ``settle`` (a ``SettleFlag``) first
+    settles the untouched rows where it is up, and is raised when a -0
+    is written into a touched row under its ``plus``. On the card the
+    ids are sorted by K20 and nothing waits for the card: the call makes
+    no host sync."""
     first = table if ftrl is None else table[0]
     R = first.shape[0]
     want_rows = delta_rows and ftrl is None
+    epoch = 0
+    if settle is not None:
+        epoch, settle.epoch = settle.epoch, settle.epoch + 1
     if is_plain(first):
         touched = touched_rows(keys, R)
-        delta = sparse_lr_apply_plain(table, touched, values, diff, count,
-                                      reg, coef, scale, ftrl, want_rows,
-                                      push)
-        if settle is not None:
-            settle_untouched(table, touched.rows, settle)
+        if settle is not None and \
+                int(settle.slots[(epoch - 1) % 2]) == epoch - 1:
+            settle_untouched(table, touched.rows, settle.plus)
+        delta, wrote_zero = sparse_lr_apply_plain(
+            table, touched, values, diff, count, reg, coef, scale, ftrl,
+            want_rows, push)
+        if settle is not None and settle.plus and wrote_zero:
+            settle.slots[epoch % 2] = epoch
         if not want_rows:
             return None, None
         n, U = keys.numel(), touched.rows.numel()
@@ -398,20 +499,20 @@ def sparse_lr_apply(table: Table, keys: torch.Tensor, values: torch.Tensor,
             require(t, name, torch.float32, dev, 2)
             if t.shape != w.shape:
                 raise ValueError(f"{name}: shape {tuple(t.shape)}")
+    if settle is not None:
+        require(settle.slots, "settle", torch.int32, dev, 1)
     n = B * K
     sorted_keys, order = key_sort(keys, R)
-    sizes = scatter_levels(n, SPAN)
-    cap_a = sizes[1] if len(sizes) > 1 else 0
-    cap = cap_a + (sizes[2] if len(sizes) > 2 else 0)
-    slot_ids = torch.empty(2 * cap, dtype=torch.int32, device=dev)
-    slot_vals = torch.empty(cap * C, dtype=torch.float32, device=dev)
-    rows = delta = delta_end = tile_ends = None
+    tiles = -(-n // SPAN)
+    # int32 scratch: the long runs' heads and count, the tiles' run ends;
+    # then a byte a tile's first and last segment and column.
+    scratch = torch.empty(tiles + 1 + tiles + (2 * tiles * C + 3) // 4,
+                          dtype=torch.int32, device=dev)
+    rows = delta = delta_end = None
     if want_rows:
         rows = torch.empty(n, dtype=torch.int64, device=dev)
         delta = torch.empty((n, C), dtype=torch.float32, device=dev)
         delta_end = torch.empty((n, C), dtype=torch.float32, device=dev)
-        tile_ends = torch.empty(-(-n // SPAN), dtype=torch.int32,
-                                device=dev)
     f = ftrl or Ftrl(1.0, 0.0, 0.0, 0.0)
     lib = build.library()
     build.check(lib.mv_sparse_lr_apply(
@@ -420,15 +521,15 @@ def sparse_lr_apply(table: Table, keys: torch.Tensor, values: torch.Tensor,
         None if ftrl is None else table[1].data_ptr(), C, R,
         sorted_keys.data_ptr(), order.data_ptr(), n, values.data_ptr(),
         diff.data_ptr(), K, count.data_ptr(), reg, float(coef),
-        int(ftrl is not None), f.alpha, f.beta, f.lambda1, f.lambda2,
-        float(scale), None if push is None else push[0].data_ptr(),
-        None if push is None else push[1].data_ptr(), slot_ids.data_ptr(),
-        slot_ids[cap:].data_ptr(), slot_vals.data_ptr(), cap_a,
-        _ptr(delta_end), _ptr(tile_ends), _ptr(rows), _ptr(delta),
-        stream_of(w)), "sparse_lr_apply")
+        int(ftrl is not None), f.inv_alpha, f.beta, f.lambda1, f.lambda2,
+        float(scale), int(not delta_rows),
+        None if push is None else push[0].data_ptr(),
+        None if push is None else push[1].data_ptr(), scratch.data_ptr(),
+        None if settle is None else settle.slots.data_ptr(), epoch,
+        int(settle is not None and settle.plus),
+        _ptr(delta_end), _ptr(rows), _ptr(delta), stream_of(w)),
+        "sparse_lr_apply")
     sparse_lr_apply.launches += 1
-    if settle is not None:
-        settle_untouched(table, sorted_keys, settle)
     return rows, delta
 
 

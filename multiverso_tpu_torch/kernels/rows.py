@@ -172,8 +172,7 @@ def run_heads(keys: torch.Tensor) -> torch.Tensor:
 def scatter_levels(n: int, chunk: int = CHUNK) -> List[int]:
     """Key counts of the sorted scatter's levels: ``n`` sorted keys cut
     into tasks of ``chunk``, then two slots a task, until one task holds
-    a level (the kernel's launches, one a level; K12 cuts tiles of
-    ``logreg.SPAN``)."""
+    a level (the kernel's launches, one a level)."""
     sizes = [n]
     while n > chunk:
         n = 2 * (-(-n // chunk))

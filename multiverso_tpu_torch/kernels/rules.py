@@ -7,11 +7,13 @@
 replaces ``UpdateEngine.apply_rows_gather``
 (``multiverso_tpu/updater/engine.py:155-193``): any rule's row update,
 then the rows ``get_ids`` gathered from the UPDATED table, in one
-cooperative launch. Its stateless arm sums repeated ids in K3's fixed
-order (the ids sorted stably on the card, ``rows.scatter_plan``, and
-the levels of ``rows.scatter_levels`` in the same launch), or takes one
-writer an element where the caller vouches that the ids ascend: the
-same bits on every run.
+cooperative launch. Where the caller vouches that the ids ascend (the
+engine's host ids), every rule takes one writer an element with no
+sort. Otherwise its stateless arm sums repeated ids in K3's fixed order
+(the ids sorted stably on the card, ``rows.scatter_plan``, and the
+levels of ``rows.scatter_levels`` in the same launch), and its stateful
+arms, like K13, walk each row's run of K20's stable sort in position
+order: the same bits on every run.
 
 Both follow JAX's semantics: ids in [-R, -1] wrap, for the table and the
 state alike; every other out-of-range id (the pad sentinel R among them)
@@ -26,8 +28,9 @@ its ``d`` columns are touched.
 ``hyp`` is the ``AddOption.hyper_array()`` float32 ``[momentum, lr,
 rho, lambda]``. On a CUDA tensor each wrapper launches its kernel
 (``csrc/row_rules.cu``; both bound by bytes) after sorting the ids
-stably by row on the card (``segments`` or ``rows.scatter_plan``, no
-host sync; K14's distinct form sorts nothing), or raises; on a
+stably by row on the card (K20 ``keysort.key_sort`` or
+``rows.scatter_plan``, no host sync; K14's distinct form sorts
+nothing), or raises; on a
 CPU tensor it runs the plain version beside it. ``row_rule_apply.
 launches`` and ``rows_apply_gather.launches`` count kernel launches.
 """
@@ -42,7 +45,8 @@ import torch
 from . import build
 from ._launch import is_plain, require, stream_of
 from .flush import add_rows, flush, fma
-from .rows import (_wrapped, level_slots, row_gather_plain,
+from .keysort import key_sort
+from .rows import (_check_distinct, _wrapped, level_slots, row_gather_plain,
                    row_scatter_add_plain, scatter_plan)
 
 #: The rule codes of ``csrc/row_rules.cu``.
@@ -76,26 +80,46 @@ def inv_sqrt(x: torch.Tensor) -> torch.Tensor:
     return scalar(1, x) / root
 
 
-#: The widest row (storage columns) at which the reference's momentum row
-#: programs fuse the other product in the last column.
-MOMENTUM_SWAP_WIDTH = 33
+#: The widest rows (storage columns) at which the reference's momentum row
+#: programs fuse the other product in the last column: of the step added
+#: to the table, and of the state written back.
+MOMENTUM_STEP_SWAP_WIDTH, MOMENTUM_STATE_SWAP_WIDTH = 29, 33
 
 
-def momentum_swap_col(width: int) -> int:
-    """The column of a momentum row update over rows of ``width`` storage
-    columns where the reference's ``apply_rows`` and ``apply_rows_gather``
-    fuse ``(1 - m) * d`` into the add (``m * s`` rounded), not ``m * s``:
-    the last one at widths up to 33, none (-1) above. Read from the
-    programs' machine code (ROADMAP C13): XLA's CPU backend unrolls the
-    column loop of rows up to 33 floats, and the last column's fused
-    multiply-add is shared with the branch of an out-of-range id, whose
-    gathered state is zero; wider rows run a vector loop that fuses
-    ``m * s`` in every column."""
-    return width - 1 if width <= MOMENTUM_SWAP_WIDTH else -1
+def momentum_swap_cols(width: int) -> Tuple[int, int]:
+    """The columns of a momentum row update over rows of ``width``
+    storage columns where the reference's ``apply_rows`` and
+    ``apply_rows_gather`` fuse ``(1 - m) * d`` into the add (``m * s``
+    rounded), not ``m * s``: (in the step added to the table, in the
+    state written back), each the last column or none (-1). XLA's CPU
+    backend unrolls the column loop of narrow rows, and the last
+    column's fused multiply-add is shared with the branch of an
+    out-of-range id, whose gathered state is zero; wider rows run a
+    vector loop that fuses ``m * s`` in every column. The program forms
+    the step and the state apart, and the two loops differ: the step's
+    last column swaps at rows up to 29 floats, the state's up to 33
+    (ROADMAP C13; found by holding both forms against the reference's
+    programs at widths 20-41 over tables of 48-1,000 rows, 1 and 8
+    devices; ``tests/test_torch_k14_stateful.py`` holds 29, 30, 33 and
+    34)."""
+    last = width - 1
+    return (last if width <= MOMENTUM_STEP_SWAP_WIDTH else -1,
+            last if width <= MOMENTUM_STATE_SWAP_WIDTH else -1)
+
+
+def _swapped(smooth: torch.Tensor, col: int, one_m, m, dv, s0):
+    """``smooth`` with column ``col`` (if any) formed as ``fma(1 - m, d,
+    m * s)``."""
+    if not 0 <= col < dv.shape[-1]:
+        return smooth
+    out = smooth.clone()
+    c = slice(col, col + 1)
+    out[..., c] = fma(one_m, dv[..., c], flush(m * s0[..., c]))
+    return out
 
 
 def rule_step(rule: str, hyp, x0: torch.Tensor, s0: torch.Tensor,
-              dv: torch.Tensor, swap_col: int = -1
+              dv: torch.Tensor, swap: Tuple[int, int] = (-1, -1)
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(step subtracted from the table, new state) of a stateful rule's
     row update, elementwise, in the reference's expression order, every
@@ -103,19 +127,16 @@ def rule_step(rule: str, hyp, x0: torch.Tensor, s0: torch.Tensor,
     product fused into the add that follows it (``fma``) exactly where
     the reference's ``apply_rows`` contracts it (ROADMAP C13, pinned by
     ``tests/test_torch_fma.py``): momentum's ``m * s`` (``(1 - m) * d``
-    in column ``swap_col`` of the last axis, ``momentum_swap_col``),
+    in the columns ``swap`` of the last axis, ``momentum_swap_cols``),
     AdaGrad's ``g * g`` and DCASGD's compensation term."""
     m, lr, rho, lam = (np.float32(v) for v in hyp)
     f = flush
     x0, s0, dv = f(x0), f(s0), f(dv)
     if rule == "momentum":
-        one_m = scalar(np.float32(1) - m, dv)
-        smooth = fma(scalar(m, dv), s0, f(one_m * dv))
-        if 0 <= swap_col < dv.shape[-1]:
-            c = slice(swap_col, swap_col + 1)
-            smooth[..., c] = fma(one_m, dv[..., c],
-                                 f(scalar(m, dv) * s0[..., c]))
-        return smooth, smooth
+        one_m, mm = scalar(np.float32(1) - m, dv), scalar(m, dv)
+        smooth = fma(mm, s0, f(one_m * dv))
+        return (_swapped(smooth, swap[0], one_m, mm, dv, s0),
+                _swapped(smooth, swap[1], one_m, mm, dv, s0))
     grad = f(dv / scalar(safe_lr(lr), dv))
     if rule == "adagrad":
         g_sqr = fma(grad, grad, s0)
@@ -174,7 +195,8 @@ def row_rule_apply_plain(rule: str, data: torch.Tensor,
     rows_state = _state_rows(rule, state, worker_id)
     s0 = torch.zeros_like(x0) if rows_state is None else torch.where(
         ok[:, None], rows_state.index_select(0, safe)[:, :d], zero)
-    swap = momentum_swap_col(data.shape[1]) if rule == "momentum" else -1
+    swap = momentum_swap_cols(data.shape[1]) if rule == "momentum" \
+        else (-1, -1)
     step, s_new = rule_step(rule, hyp, x0, s0, dv, swap)
     add_rows(data[:, :d], flat[ok], -step[ok])
     if rows_state is None:
@@ -187,16 +209,6 @@ def row_rule_apply_plain(rule: str, data: torch.Tensor,
     last.scatter_reduce_(0, target, pos, "amax")
     keep = last[target] == pos
     rows_state[:, :d].index_copy_(0, target[keep], s_new[pos[keep]])
-
-
-def segments(ids: torch.Tensor, rows: int
-             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(wrapped ids sorted stably, their positions): each row's run of
-    occurrences in position order, on the ids' device (no host sync).
-    Ids out of range keep a key outside [0, rows) and are skipped."""
-    flat = ids.reshape(-1)
-    keys = torch.where(flat < 0, flat + rows, flat)
-    return torch.sort(keys, stable=True)
 
 
 def _launch_args(rule: str, data, state, ids, delta, hyp, worker_id):
@@ -212,11 +224,12 @@ def _launch_args(rule: str, data, state, ids, delta, hyp, worker_id):
             raise ValueError(f"state {tuple(state.shape)} does not match "
                              f"the table {tuple(data.shape)}")
         workers = 1 if rule == "momentum" else state.shape[0]
-    swap = momentum_swap_col(data.shape[1]) if rule == "momentum" else -1
+    swap = momentum_swap_cols(data.shape[1]) if rule == "momentum" \
+        else (-1, -1)
     return (RULE_CODES[rule], data.data_ptr(), data.shape[0],
             data.stride(0), None if state is None else state.data_ptr(),
             workers, min(int(worker_id), 2 ** 31 - 1)), \
-        (m, lr, rho, lam, swap)
+        (m, lr, rho, lam, *swap)
 
 
 def row_rule_apply(rule: str, data: torch.Tensor, state: torch.Tensor,
@@ -232,7 +245,7 @@ def row_rule_apply(rule: str, data: torch.Tensor, state: torch.Tensor,
         row_rule_apply_plain(rule, data, state, ids, delta, hyp, worker_id)
         return
     head, hyps = _launch_args(rule, data, state, ids, delta, hyp, worker_id)
-    keys, order = segments(ids, data.shape[0])
+    keys, order = key_sort(ids, data.shape[0])
     lib = build.library()
     build.check(lib.mv_row_rule_apply(
         *head, keys.data_ptr(), order.data_ptr(), keys.numel(),
@@ -244,16 +257,49 @@ def row_rule_apply(rule: str, data: torch.Tensor, state: torch.Tensor,
 row_rule_apply.launches = 0
 
 
+def rule_apply_distinct_plain(rule: str, data: torch.Tensor,
+                              state: torch.Tensor, ids: torch.Tensor,
+                              delta: torch.Tensor, hyp,
+                              worker_id: int) -> None:
+    """Plain version of K14's distinct stateful form, in place: the
+    in-range ids strictly ascend (CHECKed, as K3's plain version checks
+    the claim), so each touched element takes one step, written once,
+    and its state once — the same operations, bit for bit, as
+    ``row_rule_apply_plain`` on such ids."""
+    _check_rows(data, ids, delta)
+    _check_distinct(ids, ids.numel(), data.shape[0])
+    k, d = delta.shape
+    flat, ok = _wrapped(ids, data.shape[0])
+    rows = flat[ok]
+    pos = torch.arange(flat.numel(), device=data.device)[ok]
+    dv = torch.zeros((rows.numel(), d), dtype=data.dtype, device=data.device)
+    has = pos < k
+    dv[has] = delta[pos[has]]
+    x0 = data.index_select(0, rows)[:, :d]
+    rows_state = _state_rows(rule, state, worker_id)
+    s0 = torch.zeros_like(x0) if rows_state is None \
+        else rows_state.index_select(0, rows)[:, :d]
+    swap = momentum_swap_cols(data.shape[1]) if rule == "momentum" \
+        else (-1, -1)
+    step, s_new = rule_step(rule, hyp, x0, s0, dv, swap)
+    data[:, :d].index_copy_(0, rows, flush(flush(x0) - step))
+    if rows_state is not None:
+        rows_state[:, :d].index_copy_(0, rows, s_new)
+
+
 def rows_apply_gather_plain(rule: str, data: torch.Tensor,
                             state: Optional[torch.Tensor], ids: torch.Tensor,
                             delta: torch.Tensor, hyp, worker_id: int,
                             get_ids: torch.Tensor, n_col: int,
                             distinct: bool = False) -> torch.Tensor:
     """Plain version of K14: the rule's row update (K3's or K13's plain
-    version), then ``row_gather_plain`` of the updated table.
-    ``distinct``: CHECK a stateless rule's claim, as K3's plain version
-    does."""
-    if rule in STATEFUL:
+    version, or with ``distinct`` the stateful rules' distinct form),
+    then ``row_gather_plain`` of the updated table. ``distinct``: CHECK
+    the claim, as K3's plain version does."""
+    if rule in STATEFUL and distinct:
+        rule_apply_distinct_plain(rule, data, state, ids, delta, hyp,
+                                  worker_id)
+    elif rule in STATEFUL:
         row_rule_apply_plain(rule, data, state, ids, delta, hyp, worker_id)
     else:
         _check_rows(data, ids, delta)
@@ -270,11 +316,14 @@ def rows_apply_gather(rule: str, data: torch.Tensor,
     """K14: ``rule``'s row update of ``data`` (and ``state``) in place,
     then ``data[get_ids, :n_col]`` of the updated table as a new
     ``[len(get_ids), n_col]`` tensor — one cooperative launch with a
-    grid-wide barrier between the two. A stateless rule sums repeated
-    ids in K3's order (the sorted form; ``rows.row_scatter_add_ordered``
-    bit for bit), or with ``distinct`` — the caller vouches that the
-    in-range ids strictly ascend — takes one writer an element with no
-    sort; the stateful rules ignore it (K13's segments)."""
+    grid-wide barrier between the two. With ``distinct`` — the caller
+    vouches that the in-range ids strictly ascend — every rule takes one
+    writer an element with no sort. Otherwise a stateless rule sums
+    repeated ids in K3's order (the sorted form;
+    ``rows.row_scatter_add_ordered`` bit for bit) and a stateful rule
+    walks each row's run of K20's sort (``keysort.key_sort``) in position
+    order, a warp on the runs whose heads a tile of 32 sorted positions
+    holds."""
     _check_state(rule, state)
     _check_rows(data, ids, delta)
     if not 0 < n_col <= data.shape[1]:
@@ -282,15 +331,16 @@ def rows_apply_gather(rule: str, data: torch.Tensor,
     stateless = rule not in STATEFUL
     if is_plain(data):
         return rows_apply_gather_plain(rule, data, state, ids, delta, hyp,
-                                       worker_id, get_ids, n_col,
-                                       distinct and stateless)
+                                       worker_id, get_ids, n_col, distinct)
     head, hyps = _launch_args(rule, data, state, ids, delta, hyp, worker_id)
     require(get_ids, "get_ids", torch.int32, data.device)
     keys = order = slot_keys = slot_vals = None
-    n, cap_a, one_writer = ids.numel(), 0, stateless and distinct
-    if not stateless:
-        keys, order = segments(ids, data.shape[0])
-    elif not one_writer:
+    n, cap_a = ids.numel(), 0
+    if distinct:
+        pass
+    elif not stateless:
+        keys, order = key_sort(ids, data.shape[0])
+    else:
         plan = scatter_plan(ids, delta.shape[0], data.shape[0])
         keys, order, n = plan.keys, plan.order, plan.keys.numel()
         slot_keys, slot_vals, cap_a = level_slots(n, delta.shape[1],
@@ -303,7 +353,7 @@ def rows_apply_gather(rule: str, data: torch.Tensor,
         None if order is None else order.data_ptr(), n,
         delta.data_ptr(), delta.shape[0], delta.shape[1], *hyps,
         get_ids.data_ptr(), get_ids.numel(), out.data_ptr(), n_col,
-        int(one_writer), None if slot_keys is None else slot_keys.data_ptr(),
+        int(distinct), None if slot_keys is None else slot_keys.data_ptr(),
         None if slot_vals is None else slot_vals.data_ptr(), cap_a,
         stream_of(data)), "rows_apply_gather")
     rows_apply_gather.launches += 1

@@ -31,7 +31,7 @@ import numpy as np
 import torch
 
 from ... import create_array_table, create_matrix_table
-from ...kernels.logreg import ftrl_weights
+from ...kernels.logreg import SettleFlag, ftrl_weights
 from ...runtime.zoo import current_zoo, resolve_device
 from ...util.log import CHECK
 from .config import Configure
@@ -59,12 +59,22 @@ def _args(batch: Batch, device: torch.device):
 
 def _reg_keeps_plus(config: Configure) -> bool:
     """Whether the reference's untouched rows settle to +0, not to a
-    flushed zero of their sign (``lrk.settle_untouched``): the dense
+    flushed zero of their sign (``SettleFlag.plus``): the dense
     update there is ``+0 * reg(w)``, a zero of ``w``'s sign (times the
     coefficient's), and ``w - z`` for a zero ``z`` of ``w``'s sign is
     +0."""
     return config.regular_type in ("L1", "L2") and \
         not np.signbit(np.float32(config.regular_coef))
+
+
+def _settle_flag(config: Configure, device) -> Optional[SettleFlag]:
+    """The flag by which a sparse model's next step settles its untouched
+    rows (ROADMAP C12), to +0 under a regularizer that keeps +0
+    (``_reg_keeps_plus``) and in FTRL's state; None for dense models."""
+    if not config.sparse:
+        return None
+    ftrl = config.objective_type == "ftrl" or config.updater_type == "ftrl"
+    return SettleFlag(device, ftrl or _reg_keeps_plus(config))
 
 
 def _read_rows(stream, shape) -> np.ndarray:
@@ -86,19 +96,17 @@ class LocalModel:
         self._scale_lr = config.updater_type in ("sgd", "ftrl")
         self._predict = make_predict(config)
         self.update_count = 0
-        # Weights came in from outside the step (``load_weights``):
-        # the next sparse step settles its untouched rows.
-        self._settle = False
+        # Weights that come in from outside the step (``load_weights``)
+        # are settled by the next sparse step.
+        self._settle = _settle_flag(config, self.device)
 
     def update(self, batch: Batch) -> float:
         lr = learning_rate(self.config, self.update_count)
         args = _args(batch, self.device)
         if self.config.sparse:
-            settle = _reg_keeps_plus(self.config) if self._settle else None
             loss_sum = self._step(self._w, *args,
                                   scale=lr if self._scale_lr else 1.0,
-                                  settle=settle)[0]
-            self._settle = False
+                                  settle=self._settle)[0]
         else:
             loss_sum, _, grad = self._step(self._w, *args)
             self._w = self._w - (grad * lr if self._scale_lr else grad)
@@ -116,7 +124,8 @@ class LocalModel:
     def load_weights(self, w: np.ndarray) -> None:
         self._w = torch.from_numpy(np.array(w, np.float32).reshape(
             tuple(self._w.shape))).to(self.device)
-        self._settle = True
+        if self._settle is not None:
+            self._settle.request()
 
     def store(self, stream) -> None:
         stream.write(self.weights.astype(np.float32).tobytes())
@@ -160,8 +169,8 @@ class PSModel:
         # A pull's reply is a copy of the server's rows, which its sgd
         # rule has flushed but whose zeros may be -0: under a
         # regularizer the next sparse step settles its untouched rows
-        # to +0 (``lrk.settle_untouched``).
-        self._settle = False
+        # to +0.
+        self._settle = _settle_flag(config, self.device)
         self._pull()
 
     # -- pull (ref: ps_model.cpp:172-182) --
@@ -172,7 +181,8 @@ class PSModel:
             buf = self._w.cpu().numpy()
             self._table.get(out=buf)
             self._w = torch.from_numpy(buf).to(self.device)
-            self._settle = _reg_keeps_plus(self.config)
+            if self._settle.plus:
+                self._settle.request()
         else:
             self._w = self._table.get_device().reshape(self._w.shape)
 
@@ -188,8 +198,7 @@ class PSModel:
                   "row ids out of range [0, num_row)")
             loss_sum, _, rows, delta = self._step(
                 self._w, *args, scale=scale, delta_rows=True,
-                settle=True if self._settle else None)
-            self._settle = False
+                settle=self._settle)
             # Sorted unique rows, on the host (one copy from the card):
             # the server's engine finds them ascending and K3 adds them
             # with one writer a row, no sort.
@@ -259,10 +268,10 @@ class FTRLModel:
             else make_dense_step(config)
         self._predict = make_predict(config, self._ftrl)
         self.update_count = 0
-        # z and n came in from outside the step (a load, a pull): the
-        # next sparse step settles its untouched rows to +0 (z + (g -
-        # sigma*w) and n + g*g add +0 there).
-        self._settle = False
+        # z and n that come in from outside the step (a load, a pull)
+        # are settled to +0 by the next sparse step (z + (g - sigma*w)
+        # and n + g*g add +0 there).
+        self._settle = _settle_flag(config, self.device)
         self._use_ps = use_ps
         if use_ps:
             size = int(np.prod(shape))
@@ -281,8 +290,7 @@ class FTRLModel:
                         torch.zeros(shape, dtype=torch.float32,
                                     device=self.device))
             loss_sum = self._step((self._z, self._n), *args, push=push,
-                                  settle=True if self._settle else None)[0]
-            self._settle = False
+                                  settle=self._settle)[0]
         else:
             z, n = self._z, self._n
             w = ftrl_weights(z, n, self._ftrl)
@@ -300,7 +308,8 @@ class FTRLModel:
             if self._batch_count % self.config.sync_frequency == 0:
                 self._z = self._z_table.get_device().reshape(shape)
                 self._n = self._n_table.get_device().reshape(shape)
-                self._settle = True
+                if self._settle is not None:
+                    self._settle.request()
         self.update_count += 1
         return float(loss_sum)
 
@@ -323,7 +332,8 @@ class FTRLModel:
             shape)).to(self.device)
         self._n = torch.from_numpy(np.array(n, np.float32).reshape(
             shape)).to(self.device)
-        self._settle = True
+        if self._settle is not None:
+            self._settle.request()
 
     def store(self, stream) -> None:
         stream.write(self._z.cpu().numpy().tobytes())

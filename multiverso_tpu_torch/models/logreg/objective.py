@@ -96,8 +96,8 @@ class SparseStep:
     (``ftrl`` given). ``delta_rows`` returns the touched rows ascending
     as a host tensor (the PS push's ids: one copy from the card) and
     their ``scale * grad`` rows on the table's device, else None for
-    both; ``push`` takes FTRL's ``(g - sigma*w, g^2)``; ``settle`` (not
-    None) also settles the untouched rows (``lrk.settle_untouched``)."""
+    both; ``push`` takes FTRL's ``(g - sigma*w, g^2)``; ``settle`` (a
+    ``lrk.SettleFlag``) settles the untouched rows where it is up."""
 
     def __init__(self, config: Configure, ftrl: Optional[lrk.Ftrl] = None):
         self.act = _act_code(config.objective_type)
@@ -107,7 +107,7 @@ class SparseStep:
 
     def __call__(self, table, keys, values, labels, weights,
                  scale: float = 1.0, delta_rows: bool = False, push=None,
-                 settle: Optional[bool] = None):
+                 settle: Optional[lrk.SettleFlag] = None):
         _, diff, loss, hit = lrk.sparse_lr_forward(
             table, keys, values, labels, weights, self.act, self.ftrl)
         count = torch.clamp(torch.sum(weights > 0), min=1).to(

@@ -22,7 +22,7 @@ K13/K14 on the card. Rows of 50 and 128 floats (the table benchmark's
 and the word2vec tables' widths), and the narrow rows 1, 3, 5, 8 and 16:
 there momentum's row programs fuse the OTHER product, ``(1 - m) * d``,
 in the last column (``rules.momentum_swap_col``: XLA's CPU backend
-unrolls the column loop of rows up to 33 floats and shares the last
+unrolls the column loop of rows up to 29 floats and shares the last
 column's fused multiply-add with the out-of-range branch; ROADMAP C13).
 Both need a host with FMA instructions: without them the reference
 rounds every product.

@@ -217,10 +217,11 @@ def test_plain_form_raises_on_a_false_claim(ids):
         rules.rows_apply_gather("default", torch.zeros(R, 2), None, ids,
                                 torch.ones(4, 2), (0, 0, 0, 0), 0, ids, 2,
                                 distinct=True)
-    # A stateful rule ignores the claim (K13's segments sort all ids).
-    rules.rows_apply_gather("adagrad", torch.zeros(R, 2),
-                            torch.zeros(1, R, 2), ids, torch.ones(4, 2),
-                            (0, 0.1, 0.1, 0), 0, ids, 2, distinct=True)
+    # A stateful rule's distinct form checks the claim too.
+    with pytest.raises(ValueError, match="repeat or go down"):
+        rules.rows_apply_gather("adagrad", torch.zeros(R, 2),
+                                torch.zeros(1, R, 2), ids, torch.ones(4, 2),
+                                (0, 0.1, 0.1, 0), 0, ids, 2, distinct=True)
 
 
 @pytest.mark.parametrize("host,kept", [

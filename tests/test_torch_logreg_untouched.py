@@ -9,8 +9,8 @@ the subtraction still flushes a subnormal weight; its sign follows the
 regularizer (``+0 * reg(w)``), so under L1 or L2, and in FTRL's state,
 every zero and subnormal there becomes +0. The port's K12 updates only
 the touched rows; state that comes in from outside the step (a load, a
-pull) is settled once by the next step (``kernels.logreg.
-settle_untouched``, after K12).
+pull) is settled once by the next step's settle pass (``kernels.logreg.
+SettleFlag``, whose plain version is ``settle_untouched``).
 
 Here weights (FTRL: ``z`` and ``n``) holding subnormals and signed zeros
 in rows no batch touches are loaded into both packages, two sparse
@@ -18,11 +18,17 @@ updates run, and the untouched rows are compared as int32 bits. The PS
 cases also pull rows that another worker moved on the server (whose
 sgd rule flushes what it stores, so a pull brings no subnormal in: they
 hold the settle pass after a pull, which runs under a regularizer
-only). The touched rows are K12's, held at
-``tests/test_torch_logreg.py``'s tolerance: the reference's fused
-programs contract some products into adds there (``LocalModel``'s ``w -
-grad * lr``, FTRL's ``n + g * g``), which K12 does not mirror (ROADMAP
-C13).
+only). The touched rows are K12's, held bit for bit too: K12 sums a
+row's gradient from its regularization term in position order, fuses
+the products the reference's programs fuse (``LocalModel``'s ``w - grad
+* lr``, FTRL's ``n + g * g``) and K11 forms the sigmoid with XLA's
+polynomial exp (ROADMAP C13).
+
+``test_written_zero_settles_as_reference``: K12 itself writes a -0 into
+a touched row (a weight below 2^-103 whose update underflows is flushed
+to a zero of its sign); under a regularizer the reference's next batch
+that does not touch the row turns it into +0, and so does the port's
+settle pass (``kernels.logreg.SettleFlag``, ROADMAP C12).
 """
 
 import io
@@ -45,7 +51,6 @@ I_SIZE, B, K = 40, 8, 5
 #: untouched.
 TOUCHED = 20
 SUB = np.float32(3e-40)
-RTOL, ATOL = 1e-5, 1e-7
 
 
 def _bits(x) -> np.ndarray:
@@ -87,8 +92,10 @@ def _held(got, want, what: str) -> None:
     assert (g == w).all(), (
         f"{what}: untouched rows {rows[untouched][(g != w).any(-1)]}: "
         f"{got[untouched][g != w][:6]} vs {want[untouched][g != w][:6]}")
-    np.testing.assert_allclose(got[~untouched], want[~untouched],
-                               rtol=RTOL, atol=ATOL, err_msg=what)
+    g, w = _bits(got[~untouched]), _bits(want[~untouched])
+    assert (g == w).all(), (
+        f"{what}: touched rows {rows[~untouched][(g != w).any(-1)]}: "
+        f"{got[~untouched][g != w][:6]} vs {want[~untouched][g != w][:6]}")
 
 
 def _cfg(kw, jax_side: bool):
@@ -222,3 +229,54 @@ def test_untouched_rows_settle_as_reference(model, kw):
         _ps(kw, w, underflow=model == "ps_underflow")
     else:
         _ftrl(kw, w, use_ps=model == "ftrl_ps")
+
+
+#: A weight below 2^-103 and a batch whose update takes it below the
+#: smallest normal: w - lr * (v * diff / count) with v * w ~ 0, so pred
+#: is 1/2 and diff -1/2 for label 1: -2e-38 + 0.37 * 6e-37 / 16 (sgd;
+#: the default updater without lr: v 2.2e-37) is a negative subnormal,
+#: flushed to -0; L2's term 0.01 * w is flushed too.
+ZERO_ROW, ZERO_W = 5, np.float32(-2e-38)
+
+
+def _zero_batches(make, value):
+    """Batch 1 touches ZERO_ROW in sample 0 alone (its other keys the
+    padding key); batch 2 does not touch it."""
+    first, second = _batches(make)
+    keys, values = first.keys.copy(), first.values.copy()
+    for k in (keys, second.keys):
+        k[k == ZERO_ROW] = ZERO_ROW + 1
+    keys[0] = I_SIZE
+    values[0] = 0.0
+    keys[0, 0], values[0, 0] = ZERO_ROW, value
+    labels = first.labels.copy()
+    labels[0] = 1
+    return [make(labels, first.weights, keys=keys, values=values,
+                 count=B), second]
+
+
+@pytest.mark.parametrize("updater,value", [("sgd", 6e-37),
+                                           ("default", 2.2e-37)])
+def test_written_zero_settles_as_reference(updater, value):
+    kw = dict(updater_type=updater, regular_type="L2", regular_coef=0.01,
+              learning_rate=0.37)
+    w = (np.random.default_rng(3).standard_normal((I_SIZE + 1, 1))
+         * 0.3).astype(np.float32)
+    w[-1] = 0.0
+    w[ZERO_ROW] = ZERO_W
+    ref = jmodel.LocalModel(_cfg(kw, True))
+    port = tmodel.LocalModel(_cfg(kw, False), device="cpu")
+    ref.load_weights(w)
+    port.load_weights(w)
+    seen = []
+    value = np.float32(value)
+    for jb, tb in zip(_zero_batches(JBatch, value),
+                      _zero_batches(Batch, value)):
+        ref.update(jb)
+        port.update(tb)
+        got, want = port.weights, np.asarray(ref.weights)
+        assert (_bits(got) == _bits(want)).all(), (
+            f"{updater}: rows {np.flatnonzero(_bits(got) != _bits(want))}")
+        seen.append((_bits(got[ZERO_ROW])[0], port._settle.raised()))
+    # Batch 1 wrote -0 and raised the flag; batch 2 settled it to +0.
+    assert seen == [(np.int32(-2 ** 31), True), (0, False)], seen
