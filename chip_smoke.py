@@ -4,11 +4,11 @@ CUDA card.
 
 Phases, each fatal on failure:
 
-1. build the twenty hand-written kernels from ``multiverso_tpu_torch/csrc``
-   (one ``nvcc`` per source, all started together, ``-ftz=true``) and
-   print the build time, ``ptxas`` resource usage and how many of the
-   library's float adds, multiplies and fused multiply-adds flush
-   subnormals (``.FTZ`` in its SASS);
+1. build the twenty-one hand-written kernels from
+   ``multiverso_tpu_torch/csrc`` (one ``nvcc`` per source, all started
+   together, ``-ftz=true``) and print the build time, ``ptxas`` resource
+   usage and how many of the library's float adds, multiplies and fused
+   multiply-adds flush subnormals (``.FTZ`` in its SASS);
 2. set up the main path at the benchmark's full width: the synthetic
    corpus of ``bench.py`` (``models/wordembedding/synthetic.py``, ~6M
    tokens, ~1M-word dictionary), ``mv.init([])`` on ``cuda:0``,
@@ -85,8 +85,10 @@ Phases, each fatal on failure:
    nonzeros a sample: 13 numeric fields with log-scaled values and 26
    Zipf-skewed categorical ones with value 1; labels from a planted
    weight vector), in batches of 4096: K11 and K12 against their plain
-   versions at the first batch's shapes (K11 within a tolerance, K12 bit
-   for bit against its plain version on the CPU, which sums as the
+   versions at the first batch's shapes (K11 bit for bit against the CPU
+   model of its summation order, ``sparse_lr_forward_ordered``, the same
+   bits on two launches, and within a tolerance of its plain version;
+   K12 bit for bit against its plain version on the CPU, which sums as the
    reference does, the same bits on two launches, no host sync in the
    call under ``torch.cuda.set_sync_debug_mode("error")``, and its
    settle pass: a written -0 settled to +0 at the next step, a load's
@@ -99,7 +101,10 @@ Phases, each fatal on failure:
    sigmoid, L2, sgd), ``lr_ftrl_local`` (``FTRLModel``),
    ``lr_sparse_ps`` (``PSModel`` over a sparse matrix table, with K2 and
    K3 checked where its server runs them) and ``lr_ftrl_ps`` (two array
-   tables) — and ``lr_dense_ps`` (the mnist.config widths, torch only),
+   tables) — and ``lr_dense_ps`` (the mnist.config widths: the matmuls in
+   full float32, which the phase asserts, and K21 ``dense_lr_forward``
+   between them; K21 and the step's other elementwise stages fed the
+   card's matmul outputs, bit for bit the same stages on the CPU),
    each 4 warm-up batches and 64 counted (samples/s, every kernel of
    the path launched, finite losses) and profiled (device ms a batch,
    busy share); the tests' small sets trained on the card and on the
@@ -537,10 +542,18 @@ def check_subsample(torch, corpus, u):
     V = int(corpus.keep.numel())
     got = subsample.subsample_compact(corpus.flat, corpus.sent, corpus.keep,
                                       u)
+    again = subsample.subsample_compact(corpus.flat, corpus.sent,
+                                        corpus.keep, u)
     ref = subsample.subsample_compact_plain(corpus.flat, corpus.sent,
                                             corpus.keep, u)
     err = max(int((g.to(torch.int64) - r.to(torch.int64)).abs().max())
               for g, r in zip(got, ref))
+    twice = all(bool(torch.equal(g, a)) for g, a in zip(got, again))
+    dropped = T - int(ref[2])
+    log(f"[K1] {T} tokens, {dropped} dropped, {subsample.tiles_of(T)} tiles "
+        f"of {subsample.TILE}: bit-exact {'yes' if err == 0 else 'NO'}, "
+        f"same bits on two launches {'yes' if twice else 'NO'}; bytes "
+        f"moved {T * 20 + dropped * 12 + V * 4} (bound {T * 20 + V * 4})")
 
     def library_partition():
         mask = u < corpus.keep[corpus.flat.to(torch.int64)]
@@ -548,9 +561,14 @@ def check_subsample(torch, corpus, u):
                            torch.nonzero(~mask).reshape(-1)])
         return corpus.flat[order], corpus.sent[order]
 
+    log_split("subsample_compact", "ps", time_split(
+        torch, lambda: subsample.subsample_compact(corpus.flat, corpus.sent,
+                                                   corpus.keep, u)))
     return dict(
-        name="subsample_compact", tol="bit-exact", max_abs_err=float(err),
-        ok=err == 0,
+        name="subsample_compact",
+        tol="bit-exact; same bits on two launches "
+            f"{'yes' if twice else 'NO'}", max_abs_err=float(err),
+        ok=err == 0 and twice,
         source="multiverso_tpu_torch/csrc/subsample_compact.cu",
         replaces="multiverso_tpu/models/wordembedding/device_train.py:61",
         ms=time_ms(torch, lambda: subsample.subsample_compact(
@@ -2100,9 +2118,11 @@ def lr_case(torch, np, tag: str, config, batch, gen, device, ps: bool,
             dup: bool = False, time_it: bool = True):
     """K11 and K12 against their plain versions at ``batch``'s shapes on
     random state of ``config``'s model (``ps``: K12 also returns the
-    push — the delta rows, or FTRL's dense push buffers): K11 within
-    |err| <= 1e-5 + 1e-4 |plain| (pred, diff), loss sum rel err <= 1e-5
-    and equal hit counts; K12 bit-exact against its plain version on the
+    push — the delta rows, or FTRL's dense push buffers): K11 bit for
+    bit against ``sparse_lr_forward_ordered`` on the CPU, the same bits
+    on two launches, and within |err| <= 1e-5 + 1e-4 |plain| (pred,
+    diff), loss sum rel err <= 1e-5 and equal hit counts of its plain
+    version; K12 bit-exact against its plain version on the
     CPU (which adds a row's terms from its regularization term in
     position order, as K12 and the reference do; ROADMAP C13: on the
     card the plain version's ``index_add_`` takes another order each
@@ -2144,6 +2164,17 @@ def lr_case(torch, np, tag: str, config, batch, gen, device, ps: bool,
         abs(float(ref[2].sum())), 1e-30)
     hits = (int(got[3].sum()), int(ref[3].sum()))
     ok = ok and loss_rel <= 1e-5 and hits[0] == hits[1]
+    # K11's own order (lanes a sample, then their xor tree) on the CPU.
+    cpu = torch.device("cpu")
+    ordered = lrk.sparse_lr_forward_ordered(
+        table.to(cpu) if ftrl is None else tuple(t.to(cpu) for t in table),
+        keys.to(cpu), values.to(cpu), labels.to(cpu), weights.to(cpu), act,
+        ftrl)
+    again = lrk.sparse_lr_forward(table, keys, values, labels, weights,
+                                  act, ftrl)
+    exact = same_bits(torch, [g.cpu() for g in got], ordered)
+    fwd_twice = same_bits(torch, got, again)
+    ok = ok and exact and fwd_twice
     sectors = -(-C * 4 // 32) * 32     # bytes of a table row's sectors
     tables = 1 if ftrl is None else 2
     gathered = int(torch.unique(lrk.gather_ids(keys, R)).numel())
@@ -2151,7 +2182,11 @@ def lr_case(torch, np, tag: str, config, batch, gen, device, ps: bool,
         + B * C * 4 * 2 + B * 4 * 2
     fwd = dict(
         name="sparse_lr_forward", ok=ok, max_abs_err=err,
-        tol=f"pred, diff |err| <= 1e-5 + 1e-4 |plain|; loss rel err "
+        tol=f"bit-exact against its order's CPU model "
+            f"({lrk.forward_lanes(K, C)} lanes a sample): "
+            f"{'yes' if exact else 'NO'}; same bits on two launches "
+            f"{'yes' if fwd_twice else 'NO'}; against the plain version "
+            f"pred, diff |err| <= 1e-5 + 1e-4 |plain|; loss rel err "
             f"{loss_rel:.2g} <= 1e-5; hits {hits[0]} = {hits[1]}",
         source=_LR_SRC, replaces=_LR_REF + "objective.py:89",
         library_ms=None, bound=bound(fwd_bytes, 2.0 * B * K * C))
@@ -2166,7 +2201,6 @@ def lr_case(torch, np, tag: str, config, batch, gen, device, ps: bool,
             return None
         return (torch.zeros(R, C, device=dev), torch.zeros(R, C, device=dev))
 
-    cpu = torch.device("cpu")
     a, a2 = _clone_table(table), _clone_table(table)
     b = table.to(cpu) if ftrl is None else tuple(t.to(cpu) for t in table)
     pa, pa2, pb = push_buffers(), push_buffers(), push_buffers(cpu)
@@ -2207,21 +2241,21 @@ def lr_case(torch, np, tag: str, config, batch, gen, device, ps: bool,
     exact = all(torch.equal(x.contiguous().view(torch.int32),
                             y.contiguous().view(torch.int32))
                 for x, y in pairs)
-    same_bits = all(torch.equal(x.contiguous().view(torch.int32),
-                                y.contiguous().view(torch.int32))
-                    for x, y in twice)
+    apply_same = all(torch.equal(x.contiguous().view(torch.int32),
+                                 y.contiguous().view(torch.int32))
+                     for x, y in twice)
     app_bytes = B * K * 4 * 2 + B * C * 4 + 4 + U * sectors * 2 * tables \
         + (U * C * 4 if want_rows else 0) \
         + (U * sectors * 2 if pa is not None else 0)
     zero_ok, zero_text = lr_settle_check(torch, lrk, device)
     app = dict(
         name="sparse_lr_apply",
-        ok=exact and same_rows and same_bits and synced[1] and zero_ok,
+        ok=exact and same_rows and apply_same and synced[1] and zero_ok,
         max_abs_err=apply_err,
         tol=f"bit-exact against the plain version on the CPU ({U} touched "
             f"rows, the padding row's {int(touched.counts[-1])} "
             f"positions among them): {'yes' if exact else 'NO'}; same "
-            f"bits on two launches {'yes' if same_bits else 'NO'}; no host "
+            f"bits on two launches {'yes' if apply_same else 'NO'}; no host "
             f"sync in the call {'yes' if synced[1] else 'NO'}; {zero_text}",
         source=_LR_SRC, replaces=_LR_REF + "objective.py:89",
         library_ms=None, bound=bound(app_bytes, 3.0 * B * K * C))
@@ -2575,6 +2609,69 @@ def drive_lr(torch, model, path: str, need, card: str, workdir: str,
     return counts
 
 
+def lr_dense_stages(torch, np, model, batch):
+    """K21 and the dense step's other elementwise stages (ROADMAP C14) on
+    the model's device, fed that device's own matmul outputs, against the
+    same stages on the CPU fed those outputs copied over: pred, diff,
+    each sample's loss, hits (K21), the gradient, PSModel's delta and
+    weights and LocalModel's fused update, bit for bit. Returns K21's
+    result entry (timed at the batch's shape)."""
+    from multiverso_tpu_torch.kernels import logreg as lrk
+    from multiverso_tpu_torch.kernels.flush import flush as f
+    from multiverso_tpu_torch.kernels.flush import fma
+    from multiverso_tpu_torch.models.logreg import objective
+    config, dev = model.config, model.device
+    act = objective._act_code(config.objective_type)
+    reg = objective._reg_code(config.regular_type)
+    lr = objective.learning_rate(config, model.update_count)
+    w = model._w.clone()
+    x, labels, weights = (torch.from_numpy(a).to(dev) for a in
+                          (batch.x, batch.labels, batch.weights))
+    logits = objective.dense_matmul(x, w)
+
+    def stages(logits, gsum, w, labels, weights):
+        pred, diff, loss, hit = lrk.dense_lr_forward(logits, labels,
+                                                     weights, act)
+        grad = objective.dense_grad(gsum, objective.dense_count(weights), w,
+                                    reg, config.regular_coef)
+        rate = torch.tensor(lr, dtype=torch.float32, device=w.device)
+        delta = f(grad * rate)
+        return (pred, diff, loss, hit, grad, delta, f(f(w) - delta),
+                fma(-grad, rate, w))
+
+    diff = lrk.dense_lr_forward(logits, labels, weights, act)[1]
+    gsum = objective.dense_matmul(x.T, diff)
+    got = stages(logits, gsum, w, labels, weights)
+    again = stages(logits, gsum, w, labels, weights)
+    cpu = torch.device("cpu")
+    want = stages(*(t.to(cpu) for t in (logits, gsum, w, labels, weights)))
+    names = ("pred", "diff", "loss", "hit", "grad", "delta", "w", "w fused")
+    bad = [n for n, g, r in zip(names, got, want)
+           if not torch.equal(g.cpu().reshape(-1).view(torch.int32),
+                              r.reshape(-1).view(torch.int32))]
+    twice = same_bits(torch, got, again)
+    log(f"[lr_dense_ps] elementwise stages on the card (K21 and torch) vs "
+        f"the CPU, fed the card's matmul outputs ({tuple(logits.shape)} "
+        f"logits, {tuple(gsum.shape)} gradient sums): "
+        f"{'bit for bit' if not bad else 'DIFFER in ' + ', '.join(bad)}; "
+        f"same bits twice {'yes' if twice else 'NO'}")
+    if bad or not twice:
+        raise AssertionError(f"lr_dense_ps: stages differ in {bad}")
+    err = max(float((g.cpu().float() - r.float()).abs().max())
+              for g, r in zip(got[:4], want[:4]))
+    B, C = logits.shape
+    return dict(
+        name="dense_lr_forward", ok=True, max_abs_err=err,
+        tol="bit-exact against its plain version on the CPU (pred, diff, "
+            "loss, hits), same bits on two launches",
+        source=_LR_SRC, replaces=_LR_REF + "objective.py:67",
+        library_ms=None, bound=bound(B * C * 4 * 3 + B * 4 * 4),
+        ms=time_ms(torch, lambda: lrk.dense_lr_forward(logits, labels,
+                                                       weights, act)),
+        plain_ms=time_ms(torch, lambda: lrk.dense_lr_forward_plain(
+            logits, labels, weights, act)))
+
+
 def write_lr_sparse(np, path: str, n: int = 96, d: int = 40, seed: int = 0):
     """The tests' libsvm set (tests/test_logreg.py ``write_sparse_data``)."""
     rng = np.random.default_rng(seed)
@@ -2766,6 +2863,10 @@ def run_logreg_phase(torch, np, mv, device, card: str, workdir: str,
         x = np.clip(centers[y] + rng.standard_normal((20, 784)) * 0.2, 0, 1)
         dense.append(Batch(y, np.ones(20, np.float32),
                            x=x.astype(np.float32), count=20))
+    if cuda and (torch.backends.cuda.matmul.allow_tf32 or
+                 torch.get_float32_matmul_precision() != "highest"):
+        raise AssertionError("lr_dense_ps: float32 matmuls must run in full "
+                             "float32 (TF32 is on)")
     mv.init([], device=None if cuda else "cpu")
     try:
         model = PSModel(Configure(**LR_DENSE))
@@ -2773,9 +2874,12 @@ def run_logreg_phase(torch, np, mv, device, card: str, workdir: str,
         if server._data.device != device:
             raise AssertionError(f"the array table lies on "
                                  f"{server._data.device}")
-        counts["lr_dense_ps"] = drive_lr(torch, model, "lr_dense_ps", (),
-                                         card, workdir, profile_dir, dense,
-                                         warm)
+        counts["lr_dense_ps"] = drive_lr(torch, model, "lr_dense_ps",
+                                         ("dense_lr_forward",), card,
+                                         workdir, profile_dir, dense, warm)
+        if cuda:
+            results += report([lr_dense_stages(torch, np, model, dense[0])],
+                              card, "lr_dense_ps")
     finally:
         mv.shutdown()
     del batches, dense

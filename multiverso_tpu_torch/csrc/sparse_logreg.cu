@@ -1,5 +1,6 @@
 // K11 sparse_lr_forward and K12 sparse_lr_apply: the sparse logistic
-// regression step.
+// regression step; and K21 dense_lr_forward, K11's elementwise part for
+// the dense models (at its definition below).
 //
 // Together they replace the reference's make_sparse_step
 // (multiverso_tpu/models/logreg/objective.py:89-116) as fused into
@@ -11,16 +12,23 @@
 // every sample is scored, which one launch could only ensure with a
 // grid-wide barrier.
 //
-// K11, one warp a sample b: logits[c] = sum_k values[b,k] * W[key, c],
-// W gathered as JAX's w[keys] gathers (an id in [-R, -1] wraps, then
-// every id clamps into [0, R-1]); W is w, or FTRL's weights_of(z, n)
-// computed for the gathered rows only. Then pred = act(logits) (linear,
-// sigmoid, or softmax with the max subtracted), and with labels
-// diff = (pred - onehot) * weight[b], the per-sample loss times its
-// weight (logs clipped at 1e-6; the linear loss is a mean over classes)
-// and the per-sample hit (pred >= 0.5 for one output, else the first
-// argmax, counted only where weight > 0). Lanes stride over the K
-// positions for the logits and over the C classes for the rest.
+// K11: logits[c] = sum_k values[b,k] * W[key, c], W gathered as JAX's
+// w[keys] gathers (an id in [-R, -1] wraps, then every id clamps into
+// [0, R-1]); W is w, or FTRL's weights_of(z, n) computed for the gathered
+// rows only. Then pred = act(logits) (linear, sigmoid, or softmax), and
+// with labels diff = (pred - onehot) * weight[b], the per-sample loss
+// times its weight and the per-sample hit (pred >= 0.5 for one output,
+// else the first argmax, counted only where weight > 0), formed as the
+// reference's XLA forms them: its exp and log, the loss's products fused
+// into the sum over classes, every class loop in class order. A sample
+// takes G lanes (the host's forward_lanes: at criteo's K of 64 padded
+// and one class, 8 lanes, 4 samples a warp and 8 terms a lane; a warp
+// for several classes). Each lane issues all its key and value loads,
+// then all its row (or z and n) gathers, before its first add, sums its
+// positions in order, and the group's xor tree (log2 G shuffles) sums
+// the lanes; lane 0 then finishes the sample alone, with no warp-wide
+// reduction. The order is fixed, and sparse_lr_forward_ordered
+// (kernels/logreg.py) is its model on the CPU: the same bits.
 //
 // K12, over the batch's UNIQUE touched rows (ids as JAX's .at[keys].add
 // takes them: [-R, -1] wraps, every other out-of-range id is dropped).
@@ -75,7 +83,6 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
 constexpr float kLogClip = 1e-6f;
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -90,12 +97,6 @@ struct Ftrl {
 
 __device__ __forceinline__ float warp_sum(float x) {
   for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(kFull, x, o);
-  return x;
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-  for (int o = 16; o > 0; o >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(kFull, x, o));
   return x;
 }
 
@@ -116,14 +117,16 @@ __device__ __forceinline__ float ftrl_weight(float z, float n, Ftrl f) {
   return __fdiv_rn(-shrunk, den);
 }
 
-// jax.nn.sigmoid as the reference's XLA compiles it on the CPU (ROADMAP
-// C13): 1 / (exp(-z) + 1) with XLA's polynomial exp (the input clamped,
-// 2^k split off, a degree-5 polynomial; its constants read from the
-// compiled program), the products fused into the adds that follow them
-// as its machine code fuses them, the scaling by 2^k into the + 1.
-__device__ __forceinline__ float xla_sigmoid(float z) {
+// XLA's exp on the CPU before its last step (ROADMAP C13): the input
+// clamped, 2^k split off, a degree-5 polynomial, the products fused into
+// the adds that follow them as the reference's machine code fuses them;
+// exp(x) = e1 * scale (kernels/logreg.py _exp_parts).
+struct ExpParts {
+  float e1, scale;
+};
+
+__device__ __forceinline__ ExpParts xla_exp_parts(float x) {
   const float lo = __int_as_float(0xC2AF999A), hi = __int_as_float(0x42B1999A);
-  float x = -z;
   x = (x >= lo || isnan(x)) ? x : lo;
   x = (x <= hi || isnan(x)) ? x : hi;
   float k = floorf(__fmaf_rn(x, __int_as_float(0x3FB8AA3B), 0.5f));
@@ -136,9 +139,53 @@ __device__ __forceinline__ float xla_sigmoid(float z) {
   y = __fmaf_rn(y, r, __int_as_float(0x3D2AA9C1));
   y = __fmaf_rn(y, r, __int_as_float(0x3E2AAAAA));
   y = __fmaf_rn(y, r, 0.5f);
-  const float e1 = __fadd_rn(__fmaf_rn(y, __fmul_rn(r, r), r), 1.f);
-  const float scale = __int_as_float(((int)k + 127) << 23);
-  return __fdiv_rn(1.f, __fmaf_rn(e1, scale, 1.f));
+  return {__fadd_rn(__fmaf_rn(y, __fmul_rn(r, r), r), 1.f),
+          __int_as_float(((int)k + 127) << 23)};
+}
+
+// jax.nn.sigmoid as the reference's XLA compiles it: 1 / (exp(-z) + 1),
+// the scaling by 2^k fused into the + 1.
+__device__ __forceinline__ float xla_sigmoid(float z) {
+  const ExpParts p = xla_exp_parts(-z);
+  return __fdiv_rn(1.f, __fmaf_rn(p.e1, p.scale, 1.f));
+}
+
+__device__ __forceinline__ float xla_exp(float x) {
+  const ExpParts p = xla_exp_parts(x);
+  return __fmul_rn(p.e1, p.scale);
+}
+
+// jnp.log as the reference's XLA compiles it on the CPU (ROADMAP C14; its
+// constants read from the compiled loss, kernels/logreg.py log): the
+// mantissa and exponent split off, a degree-8 polynomial in three fused
+// chains, e * ln 2 added in two parts. 0 gives -inf, +inf itself, a
+// negative or NaN input NaN with every bit set.
+__device__ __forceinline__ float xla_log(float x) {
+  const float flt_min = __int_as_float(0x00800000);
+  const int bits = __float_as_int(x > flt_min ? x : flt_min);
+  float e = __fadd_rn((float)((bits >> 23) - 127), 1.f);
+  const float mant = __int_as_float((bits & (int)0x807FFFFF) | 0x3F000000);
+  const bool low = mant < __int_as_float(0x3F3504F3);
+  e = __fsub_rn(e, low ? 1.f : 0.f);
+  const float m = __fadd_rn(__fsub_rn(mant, 1.f), low ? mant : 0.f);
+  const float m2 = __fmul_rn(m, m), m3 = __fmul_rn(m2, m);
+  float y = __fmaf_rn(__fmaf_rn(m, __int_as_float(0x3D9021BB),
+                                __int_as_float(0xBDEBD1B8)),
+                      m, __int_as_float(0x3DEF251A));
+  const float y1 = __fmaf_rn(__fmaf_rn(m, __int_as_float(0xBDFE5D4F),
+                                       __int_as_float(0x3E11E9BF)),
+                             m, __int_as_float(0xBE2AAE50));
+  const float y2 = __fmaf_rn(__fmaf_rn(m, __int_as_float(0x3E4CCEAC),
+                                       __int_as_float(0xBE7FFFFC)),
+                             m, __int_as_float(0x3EAAAAAA));
+  y = __fmaf_rn(y, m3, y1);
+  y = __fmaf_rn(y, m3, y2);
+  y = __fmaf_rn(y, m3, __fmul_rn(e, __int_as_float(0xB95E8083)));
+  const float r = __fmaf_rn(e, __int_as_float(0x3F318000),
+                            __fadd_rn(__fmaf_rn(-0.5f, m2, m), y));
+  if (x == 0.f) return -INFINITY;
+  if (x == INFINITY) return x;
+  return x > 0.f ? r : __int_as_float(-1);
 }
 
 // The row JAX's w[keys] reads: [-R, -1] wraps, then clamp into [0, R-1].
@@ -154,92 +201,176 @@ __device__ __forceinline__ float reg_of(float w, int reg, float coef) {
   return 0.f;
 }
 
-__global__ void sparse_lr_forward_kernel(
-    const float* __restrict__ w, const float* __restrict__ z,
-    const float* __restrict__ n, int64_t rows, int C,
-    const int32_t* __restrict__ keys, const float* __restrict__ values,
-    int B, int K, const int32_t* __restrict__ labels,
-    const float* __restrict__ weights, int act, int ftrl_on, Ftrl f,
-    float* __restrict__ pred, float* __restrict__ diff,
-    float* __restrict__ loss, int32_t* __restrict__ hit) {
-  extern __shared__ float smem[];  // [kWarps][C] logits
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int b = blockIdx.x * kWarps + warp;
-  if (b >= B) return;  // the whole warp leaves together
-  float* lg = smem + (size_t)warp * C;
-  const int32_t* kb = keys + (int64_t)b * K;
-  const float* vb = values + (int64_t)b * K;
-  for (int c = 0; c < C; ++c) {
-    float acc = 0.f;
-    for (int k = lane; k < K; k += 32) {
-      const int64_t at = gather_row(kb[k], rows) * C + c;
-      const float wv = ftrl_on ? ftrl_weight(__ldg(z + at), __ldg(n + at), f)
-                               : __ldg(w + at);
-      acc += vb[k] * wv;
-    }
-    acc = warp_sum(acc);
-    if (lane == 0) lg[c] = acc;
-  }
-  __syncwarp();
+// ---- K11 ----
 
-  float mx = 0.f, se = 1.f;
-  if (act == kSoftmax) {
-    mx = -INFINITY;
-    for (int c = lane; c < C; c += 32) mx = fmaxf(mx, lg[c]);
-    mx = warp_max(mx);
-    se = 0.f;
-    for (int c = lane; c < C; c += 32) se += expf(lg[c] - mx);
-    se = warp_sum(se);
+constexpr int kFwdThreads = 128;
+constexpr int kTerms = 8;  // terms a lane loads at once (FWD_TERMS)
+
+struct Fwd {
+  const float* w;
+  const float* z;
+  const float* n;
+  int64_t rows;
+  int C;
+  const int32_t* keys;
+  const float* values;
+  int B, K;
+  const int32_t* labels;  // null: pred only
+  const float* weights;
+  int act;
+  int ftrl_on;
+  Ftrl f;
+  float inv_c;            // float32 1/C: the linear loss's mean
+  float* pred;
+  float* diff;
+  float* loss;
+  int32_t* hit;
+};
+
+// One sample's activation, loss and hit from its C logits lg (in place:
+// lg becomes pred), as kernels/logreg.py forms them (activation,
+// sample_loss, sample_hits): every class loop in class order, the
+// softmax's max and sum and the loss's sum over classes; the loss's
+// products fused as the reference fuses them. ONE: C == 1.
+template <bool ONE>
+__device__ __forceinline__ void finish_sample(const Fwd& a, float* lg,
+                                              int64_t b) {
+  const int C = ONE ? 1 : a.C;
+  if (a.act == kSigmoid) {
+    for (int c = 0; c < C; ++c) lg[c] = xla_sigmoid(lg[c]);
+  } else if (a.act == kSoftmax) {
+    float m = lg[0];
+    for (int c = 1; c < C; ++c) m = fmaxf(m, lg[c]);
+    float s = 0.f;
+    for (int c = 0; c < C; ++c) {
+      lg[c] = xla_exp(__fsub_rn(lg[c], m));
+      s = __fadd_rn(s, lg[c]);
+    }
+    for (int c = 0; c < C; ++c) lg[c] = __fdiv_rn(lg[c], s);
   }
-  const bool labelled = labels != nullptr;
-  const int lab = labelled ? labels[b] : 0;
-  const float wt = labelled ? weights[b] : 0.f;
-  float lsum = 0.f, best = -INFINITY, p0 = 0.f;
+  for (int c = 0; c < C; ++c) a.pred[b * C + c] = lg[c];
+  if (a.labels == nullptr) return;
+  const int lab = a.labels[b];
+  const float wt = a.weights[b];
+  float acc = 0.f, best = -INFINITY;
   int best_c = 0;
-  for (int c = lane; c < C; c += 32) {
-    const float x = lg[c];
-    float p = x;
-    if (act == kSigmoid) {
-      p = xla_sigmoid(x);
-    } else if (act == kSoftmax) {
-      p = expf(x - mx) / se;
-    }
-    pred[(int64_t)b * C + c] = p;
-    if (c == 0) p0 = p;
-    if (!labelled) continue;
-    const float y = (C == 1) ? (lab == 1 ? 1.f : 0.f) : (c == lab ? 1.f : 0.f);
-    diff[(int64_t)b * C + c] = (p - y) * wt;
-    if (act == kSigmoid) {
-      lsum -= y * logf(fmaxf(p, kLogClip)) +
-              (1.f - y) * logf(fmaxf(1.f - p, kLogClip));
-    } else if (act == kSoftmax) {
-      lsum -= y * logf(fmaxf(p, kLogClip));
+  for (int c = 0; c < C; ++c) {
+    const float p = lg[c];
+    const float y = (ONE ? lab == 1 : c == lab) ? 1.f : 0.f;
+    a.diff[b * C + c] = __fmul_rn(__fsub_rn(p, y), wt);
+    if (a.act == kSigmoid) {
+      const float t = __fmaf_rn(
+          y, xla_log(fmaxf(p, kLogClip)),
+          __fmul_rn(__fsub_rn(1.f, y),
+                    xla_log(fmaxf(__fsub_rn(1.f, p), kLogClip))));
+      acc = ONE ? t : __fadd_rn(acc, t);  // XLA folds a sum of one
+    } else if (a.act == kSoftmax) {
+      acc = __fmaf_rn(y, xla_log(fmaxf(p, kLogClip)), acc);
     } else {
-      lsum += (p - y) * (p - y);
+      const float d = __fsub_rn(p, y);
+      acc = __fmaf_rn(d, d, acc);
     }
-    if (p > best) {  // the first maximum of this lane's classes
+    if (p > best) {  // the first maximum
       best = p;
       best_c = c;
     }
   }
-  if (!labelled) return;
-  lsum = warp_sum(lsum);
-  if (act != kSigmoid && act != kSoftmax) lsum /= (float)C;
-  // The first maximum over the lanes: larger value, then smaller class.
-  for (int o = 16; o > 0; o >>= 1) {
-    const float ov = __shfl_xor_sync(kFull, best, o);
-    const int oc = __shfl_xor_sync(kFull, best_c, o);
-    if (ov > best || (ov == best && oc < best_c)) {
-      best = ov;
-      best_c = oc;
+  const float l = a.act == kLinear ? __fmul_rn(acc, a.inv_c) : -acc;
+  a.loss[b] = __fmul_rn(l, wt);
+  const int guess = ONE ? (lg[0] >= 0.5f ? 1 : 0) : best_c;
+  a.hit[b] = (wt > 0.f && guess == lab) ? 1 : 0;
+}
+
+// G lanes a sample (a power of two; the host's forward_lanes). Lane g of a
+// group takes positions g, g + G, g + 2G, ...: it loads kTerms keys and
+// values, then their rows (or FTRL's z and n), all before its first add,
+// and adds its products in position order from +0. The group's xor tree
+// then sums the lanes (log2 G shuffles, the same bits in every lane), and
+// lane 0 finishes the sample alone. ONE (C == 1): the logit stays in a
+// register; else (a warp a sample) the C logits go to shared memory.
+template <int G, bool ONE>
+__global__ void __launch_bounds__(kFwdThreads) lr_forward(Fwd a) {
+  extern __shared__ float s_logits[];  // [kFwdThreads / 32][C] (not ONE)
+  const int g = threadIdx.x & (G - 1);
+  const int64_t b = ((int64_t)blockIdx.x * kFwdThreads + threadIdx.x) / G;
+  const bool live = b < a.B;  // dead lanes still join the shuffles
+  const int32_t* kb = a.keys + (live ? b : 0) * a.K;
+  const float* vb = a.values + (live ? b : 0) * a.K;
+  const int C = ONE ? 1 : a.C;
+  float reg[1];
+  float* lg = ONE ? reg : s_logits + (threadIdx.x >> 5) * a.C;
+  for (int c = 0; c < C; ++c) {
+    float acc = 0.f;
+    for (int k0 = g; k0 < a.K; k0 += G * kTerms) {
+      int64_t at[kTerms];
+      float val[kTerms], wv[kTerms];
+#pragma unroll
+      for (int j = 0; j < kTerms; ++j) {
+        const int k = k0 + j * G;
+        const bool in = live && k < a.K;
+        at[j] = in ? gather_row(__ldg(kb + k), a.rows) * C + c : -1;
+        val[j] = in ? __ldg(vb + k) : 0.f;
+      }
+      if (a.ftrl_on) {
+        float zz[kTerms], nn[kTerms];
+#pragma unroll
+        for (int j = 0; j < kTerms; ++j) {
+          zz[j] = at[j] >= 0 ? __ldg(a.z + at[j]) : 0.f;
+          nn[j] = at[j] >= 0 ? __ldg(a.n + at[j]) : 0.f;
+        }
+#pragma unroll
+        for (int j = 0; j < kTerms; ++j)
+          wv[j] = ftrl_weight(zz[j], nn[j], a.f);
+      } else {
+#pragma unroll
+        for (int j = 0; j < kTerms; ++j)
+          wv[j] = at[j] >= 0 ? __ldg(a.w + at[j]) : 0.f;
+      }
+#pragma unroll
+      for (int j = 0; j < kTerms; ++j)
+        if (at[j] >= 0) acc = __fadd_rn(acc, __fmul_rn(val[j], wv[j]));
     }
+#pragma unroll
+    for (int o = G / 2; o > 0; o >>= 1)
+      acc = __fadd_rn(acc, __shfl_xor_sync(kFull, acc, o));
+    if (g == 0 && live) lg[c] = acc;
   }
-  if (lane == 0) {
-    loss[b] = lsum * wt;
-    const int guess = (C == 1) ? (p0 >= 0.5f ? 1 : 0) : best_c;
-    hit[b] = (wt > 0.f && guess == lab) ? 1 : 0;
-  }
+  if (!ONE) __syncwarp();
+  if (g == 0 && live) finish_sample<ONE>(a, lg, b);
+}
+
+template <int G, bool ONE>
+cudaError_t launch_forward(const Fwd& a, cudaStream_t stream) {
+  const int64_t per_block = kFwdThreads / G;
+  const unsigned blocks = (unsigned)((a.B + per_block - 1) / per_block);
+  const size_t smem =
+      ONE ? 0 : (size_t)(kFwdThreads / 32) * a.C * sizeof(float);
+  if (smem > 48 * 1024) return cudaErrorInvalidValue;
+  lr_forward<G, ONE><<<blocks, kFwdThreads, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+// ---- K21 ----
+
+// K21 dense_lr_forward: the dense models' elementwise stages after their
+// x @ w (make_dense_step, multiverso_tpu/models/logreg/objective.py:
+// 67-86): K11's finish from given logits, a thread a sample (C logits in
+// a register, or in shared memory for several classes). Bound on the
+// card: bytes (the logits read once, pred and diff written once); at the
+// dense paths' batches (20 samples) a launch.
+constexpr int kDenseThreads = 128;
+
+template <bool ONE>
+__global__ void __launch_bounds__(kDenseThreads) lr_dense_forward(
+    Fwd a, const float* __restrict__ logits) {
+  extern __shared__ float s_dense[];  // [blockDim.x][C] (not ONE)
+  const int64_t b = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= a.B) return;
+  const int C = ONE ? 1 : a.C;
+  float reg[1];
+  float* lg = ONE ? reg : s_dense + (size_t)threadIdx.x * C;
+  for (int c = 0; c < C; ++c) lg[c] = logits[b * C + c];
+  finish_sample<ONE>(a, lg, b);
 }
 
 // ---- K12 ----
@@ -666,20 +797,58 @@ __global__ void __launch_bounds__(kThreads) lr_rows(
 
 }  // namespace
 
+// lanes: K11's lanes a sample (kernels/logreg.py forward_lanes: 1 to 32
+// for C == 1, 32 otherwise); inv_c: float32 1/C.
 extern "C" cudaError_t mv_sparse_lr_forward(
     const float* w, const float* z, const float* n, int64_t rows, int C,
     const int32_t* keys, const float* values, int B, int K,
     const int32_t* labels, const float* weights, int act, int ftrl_on,
-    float inv_alpha, float beta, float l1, float l2, float* pred, float* diff,
+    float inv_alpha, float beta, float l1, float l2, int lanes, float inv_c,
+    float* pred, float* diff, float* loss, int32_t* hit, cudaStream_t stream) {
+  if (B <= 0) return cudaSuccess;
+  const Fwd a{w,      z,      n,        rows,    C,
+              keys,   values, B,        K,       labels,
+              weights, act,   ftrl_on,  Ftrl{inv_alpha, beta, l1, l2},
+              inv_c,  pred,   diff,     loss,    hit};
+  if (C != 1) {
+    return lanes == 32 ? launch_forward<32, false>(a, stream)
+                       : cudaErrorInvalidValue;
+  }
+  switch (lanes) {
+    case 1: return launch_forward<1, true>(a, stream);
+    case 2: return launch_forward<2, true>(a, stream);
+    case 4: return launch_forward<4, true>(a, stream);
+    case 8: return launch_forward<8, true>(a, stream);
+    case 16: return launch_forward<16, true>(a, stream);
+    case 32: return launch_forward<32, true>(a, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// logits [B, C]; labels and weights, or neither (pred only); inv_c:
+// float32 1/C. Several classes take C floats of shared memory a thread.
+extern "C" cudaError_t mv_dense_lr_forward(
+    const float* logits, int B, int C, const int32_t* labels,
+    const float* weights, int act, float inv_c, float* pred, float* diff,
     float* loss, int32_t* hit, cudaStream_t stream) {
   if (B <= 0) return cudaSuccess;
-  const size_t smem = (size_t)kWarps * C * sizeof(float);
-  if (smem > 48 * 1024) return cudaErrorInvalidValue;
-  const Ftrl f{inv_alpha, beta, l1, l2};
-  const unsigned blocks = (unsigned)((B + kWarps - 1) / kWarps);
-  sparse_lr_forward_kernel<<<blocks, kThreads, smem, stream>>>(
-      w, z, n, rows, C, keys, values, B, K, labels, weights, act, ftrl_on, f,
-      pred, diff, loss, hit);
+  const Fwd a{nullptr, nullptr, nullptr, 0,       C,
+              nullptr, nullptr, B,       1,       labels,
+              weights, act,     0,       Ftrl{1.f, 0.f, 0.f, 0.f},
+              inv_c,   pred,    diff,    loss,    hit};
+  if (C == 1) {
+    lr_dense_forward<true><<<(unsigned)((B + kDenseThreads - 1) /
+                                        kDenseThreads),
+                             kDenseThreads, 0, stream>>>(a, logits);
+    return cudaGetLastError();
+  }
+  // Threads a block: as many warps as 48 KB of logits hold, at most 4.
+  int threads = (int)((48 * 1024) / ((size_t)C * sizeof(float))) / 32 * 32;
+  if (threads <= 0) return cudaErrorInvalidValue;
+  if (threads > kDenseThreads) threads = kDenseThreads;
+  lr_dense_forward<false><<<(unsigned)((B + threads - 1) / threads), threads,
+                            (size_t)threads * C * sizeof(float), stream>>>(
+      a, logits);
   return cudaGetLastError();
 }
 

@@ -31,6 +31,8 @@ sparse_lr_forward  ``logreg.py``             ``make_sparse_step`` forward
                                              (B15)
 sparse_lr_apply    ``logreg.py``             ``make_sparse_step`` gradient
                                              + the models' updates (B15)
+dense_lr_forward   ``logreg.py``             ``make_dense_step``'s
+                                             elementwise stages (B15)
 key_sort           ``keysort.py``            none: K12's, K13's and K14's
                                              id sort (stable, by row, on
                                              the card)
@@ -62,7 +64,7 @@ from typing import Dict
 from .cbow import banded_cbow_grad
 from .hs import banded_hs_sg_grad, hs_cbow_grad
 from .keysort import key_sort
-from .logreg import sparse_lr_apply, sparse_lr_forward
+from .logreg import dense_lr_forward, sparse_lr_apply, sparse_lr_forward
 from .mesh import mesh_allreduce
 from .pair import pair_offset_grad
 from .pairlist import pairlist_hs_grad, pairlist_ns_grad
@@ -86,6 +88,7 @@ WRAPPERS = {
     "pairlist_hs_grad": pairlist_hs_grad,
     "sparse_lr_forward": sparse_lr_forward,
     "sparse_lr_apply": sparse_lr_apply,
+    "dense_lr_forward": dense_lr_forward,
     "key_sort": key_sort,
     "row_rule_apply": row_rule_apply,
     "rows_apply_gather": rows_apply_gather,

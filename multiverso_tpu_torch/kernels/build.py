@@ -62,7 +62,8 @@ SIGNATURES = {
     "mv_segment_merge": [_P, _P, _I, _P, _P, _I64, _I, _P, _P],
     "mv_segment_split": [_P, _I64, _I, _P, _P, _I, _P, ctypes.c_uint32, _P,
                          _P],
-    "mv_subsample_compact": [_P, _P, _P, _P, _I64, _P, _P, _P, _P, _P, _P],
+    "mv_subsample_compact": [_P, _P, _P, _P, _I64, _P, ctypes.c_uint32, _P,
+                             _P, _P, _P, _I, _P],
     "mv_banded_sgns_grad": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
                             _P, _P, _P, _P, _P, _P, _P],
     "mv_banded_cbow_grad": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
@@ -78,7 +79,9 @@ SIGNATURES = {
     "mv_pairlist_hs_grad": [_P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _F,
                             _I, _P, _P, _P, _P, _P, _P, _P],
     "mv_sparse_lr_forward": [_P, _P, _P, _I64, _I, _P, _P, _I, _I, _P, _P,
-                             _I, _I, _F, _F, _F, _F, _P, _P, _P, _P, _P],
+                             _I, _I, _F, _F, _F, _F, _I, _F, _P, _P, _P, _P,
+                             _P],
+    "mv_dense_lr_forward": [_P, _I, _I, _P, _P, _I, _F, _P, _P, _P, _P, _P],
     "mv_sparse_lr_apply": [_P, _P, _P, _I, _I64, _P, _P, _I64, _P, _P, _I,
                            _P, _I, _F, _I, _F, _F, _F, _F, _F, _I, _P, _P,
                            _P, _P, _I, _I, _P, _P, _P, _P],

@@ -12,7 +12,10 @@ Together they replace ``make_sparse_step``
   formed for the gathered rows only — and returns ``pred``, ``diff =
   (pred - onehot) * weight``, the per-sample loss times its weight and
   the per-sample hit. ``w[keys]`` follows JAX's gather: ids in [-R, -1]
-  wrap, then every id clamps into [0, R-1].
+  wrap, then every id clamps into [0, R-1]. On the card ``forward_lanes``
+  lanes score a sample, each summing its positions in order, then their
+  xor tree: ``sparse_lr_forward_ordered`` is that order on the CPU (the
+  plain version sums in torch's).
 - ``sparse_lr_apply`` (K12) adds ``values * diff / count`` over the
   batch's UNIQUE touched rows into the regularization of their old
   weights, and applies the sgd or FTRL update to those rows in place.
@@ -25,13 +28,17 @@ Together they replace ``make_sparse_step``
   are all zeros adds as one zero), with no host sync; the plain version
   prepares them with ``touched_rows`` (a stable sort into a CSR of
   occurrences).
+- ``dense_lr_forward`` (K21) is K11's elementwise part for the dense
+  models: the stages after their ``x @ w`` (``make_dense_step``,
+  ``objective.py:67``), from given logits.
 
-Sums, products and the sigmoid are formed as the reference's compiled
-programs form them (ROADMAP C13), so both match it bit for bit: the
+Sums, products, exp and log are formed as the reference's compiled
+programs form them (ROADMAP C13, C14), so both match it bit for bit: the
 products it fuses into adds (``LocalModel``'s ``w - g * lr``, FTRL's ``n
-+ g * g`` and ``weights_of``'s ``+ lambda2``), its division by the
-constant ``alpha`` as a multiplication by ``1/alpha``, and its
-polynomial exp (``sigmoid``).
++ g * g`` and ``weights_of``'s ``+ lambda2``, the loss's products), its
+division by the constant ``alpha`` as a multiplication by ``1/alpha``,
+its polynomial exp (``sigmoid``, ``softmax``) and log (``sample_loss``).
+The dense models' elementwise stages use the same functions.
 
 On a CUDA tensor each wrapper launches its kernel
 (``csrc/sparse_logreg.cu``; both bound by bytes) or raises; on a CPU
@@ -40,8 +47,8 @@ are also the dense model's (``models/logreg/objective.py``). The plain
 versions flush float32 subnormals on every operation's inputs and
 result, as the reference and the kernels (``-ftz=true``) do (ROADMAP
 C12).
-``sparse_lr_forward.launches`` and ``sparse_lr_apply.launches`` count
-kernel launches.
+``sparse_lr_forward.launches``, ``sparse_lr_apply.launches`` and
+``dense_lr_forward.launches`` count kernel launches.
 """
 
 from __future__ import annotations
@@ -110,14 +117,10 @@ _EXP_POLY = tuple(_f32(b) for b in (0x39506967, 0x3AB743CE, 0x3C088908,
                                     0x3D2AA9C1, 0x3E2AAAAA)) + (0.5,)
 
 
-def sigmoid(z: torch.Tensor) -> torch.Tensor:
-    """``jax.nn.sigmoid`` as the reference's XLA compiles it on the CPU
-    (ROADMAP C13): ``1 / (exp(-z) + 1)`` with XLA's polynomial exp, its
-    products fused into the adds that follow them as the machine code
-    fuses them (the scaling by 2^k into the ``+ 1``), every operation
-    flushed."""
-    c = lambda v: _scalar(v, z)  # noqa: E731
-    x = -f(z)
+def _exp_parts(x: torch.Tensor):
+    """XLA's exp of ``x`` before its last step: ``(e1, scale)`` with
+    ``exp(x) = e1 * scale`` (``scale`` = 2^k)."""
+    c = lambda v: _scalar(v, x)  # noqa: E731
     x = torch.where((x >= _EXP_LO) | torch.isnan(x), x, c(_EXP_LO))
     x = torch.where((x <= _EXP_HI) | torch.isnan(x), x, c(_EXP_HI))
     k = torch.clamp(torch.floor(fma(x, c(_LOG2E), c(0.5))), -127.0, 127.0)
@@ -126,30 +129,116 @@ def sigmoid(z: torch.Tensor) -> torch.Tensor:
     for p in _EXP_POLY[1:]:
         y = fma(y, r, c(p))
     e1 = f(fma(y, f(r * r), r) + 1)
-    scale = ((k.to(torch.int32) + 127) << 23).view(torch.float32)
-    return f(c(1.0) / fma(e1, scale, c(1.0)))
+    return e1, ((k.to(torch.int32) + 127) << 23).view(torch.float32)
+
+
+def exp(x: torch.Tensor) -> torch.Tensor:
+    """``exp`` as the reference's XLA compiles it on the CPU: the
+    polynomial of ``sigmoid``, then ``e1 * 2^k`` as a product."""
+    e1, scale = _exp_parts(f(x))
+    return f(e1 * scale)
+
+
+def sigmoid(z: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.sigmoid`` as the reference's XLA compiles it on the CPU
+    (ROADMAP C13): ``1 / (exp(-z) + 1)`` with XLA's polynomial exp, its
+    products fused into the adds that follow them as the machine code
+    fuses them (the scaling by 2^k into the ``+ 1``), every operation
+    flushed."""
+    e1, scale = _exp_parts(-f(z))
+    one = _scalar(1.0, z)
+    return f(one / fma(e1, scale, one))
+
+
+# XLA's log on the CPU (read from the reference's compiled loss): the
+# exponent e split off and the mantissa reduced to m in [sqrt(1/2) - 1,
+# sqrt(2) - 1), a degree-8 polynomial in three fused chains, e * ln 2
+# added in two parts.
+_LOG_SQRTHF = _f32(0x3F3504F3)
+_LOG_P = tuple(_f32(b) for b in (0x3D9021BB, 0xBDEBD1B8, 0x3DEF251A,
+                                  0xBDFE5D4F, 0x3E11E9BF, 0xBE2AAE50,
+                                  0x3E4CCEAC, 0xBE7FFFFC, 0x3EAAAAAA))
+_LOG_Q1, _LOG_Q2 = _f32(0xB95E8083), _f32(0x3F318000)
+_FLT_MIN = _f32(0x00800000)
+
+
+def log(x: torch.Tensor) -> torch.Tensor:
+    """``jnp.log`` as the reference's XLA compiles it on the CPU, its
+    products fused as its machine code fuses them, every operation
+    flushed: a zero (or subnormal) gives -inf, a negative or NaN input
+    NaN (all bits set), +inf itself."""
+    c = lambda v: _scalar(v, x)  # noqa: E731
+    x = f(x)
+    bits = torch.where(x > _FLT_MIN, x, c(_FLT_MIN)).view(torch.int32)
+    e = ((bits >> 23) - 127).to(torch.float32) + 1.0
+    mant = ((bits & -2139095041) | 0x3F000000).view(torch.float32)
+    low = mant < _LOG_SQRTHF
+    e = e - low.to(torch.float32)
+    m = f(f(mant - 1.0) + torch.where(low, mant, c(0.0)))
+    m2 = f(m * m)
+    m3 = f(m2 * m)
+    p = _LOG_P
+    y = fma(fma(m, c(p[0]), c(p[1])), m, c(p[2]))
+    y1 = fma(fma(m, c(p[3]), c(p[4])), m, c(p[5]))
+    y2 = fma(fma(m, c(p[6]), c(p[7])), m, c(p[8]))
+    y = fma(fma(fma(y, m3, y1), m3, y2), m3, f(e * _LOG_Q1))
+    r = fma(e, c(_LOG_Q2), f(fma(c(-0.5), m2, m) + y))
+    nan = torch.tensor(-1, dtype=torch.int32,
+                       device=x.device).view(torch.float32)
+    r = torch.where(x > 0, r, nan)
+    r = torch.where(x == float("inf"), x, r)
+    return torch.where(x == 0, c(float("-inf")), r)
+
+
+def softmax(logits: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softmax`` over the last axis as the reference's XLA
+    compiles it on the CPU: the max and then the sum of XLA's exp taken
+    class by class in order (the sum from +0), then a division."""
+    m = logits[..., 0]
+    for j in range(1, logits.shape[-1]):
+        m = torch.maximum(m, logits[..., j])
+    e = exp(f(logits - m[..., None]))
+    s = torch.zeros_like(m)
+    for j in range(logits.shape[-1]):
+        s = f(s + e[..., j])
+    return f(e / s[..., None])
 
 
 def activation(logits: torch.Tensor, act: int) -> torch.Tensor:
     if act == ACT_SIGMOID:
         return sigmoid(logits)
     if act == ACT_SOFTMAX:
-        return f(torch.softmax(logits, dim=-1))
+        return softmax(logits)
     return logits
 
 
 def sample_loss(pred: torch.Tensor, y: torch.Tensor, act: int
                 ) -> torch.Tensor:
     """Per-sample loss: clipped-log loss for sigmoid and softmax, the
-    mean squared error over classes for the linear prediction."""
+    mean squared error over classes for the linear prediction; as the
+    reference's XLA forms it: its ``log``, each class's product fused
+    into the sum over classes (taken in order from +0), the mean a
+    product by the float32 ``1/C``."""
+    c = lambda v: _scalar(v, pred)  # noqa: E731
+    clip = c(LOG_CLIP)
+    acc = torch.zeros_like(pred[..., 0])
     if act == ACT_SIGMOID:
-        return -f(torch.sum(f(f(y * f(torch.log(torch.clamp(
-            pred, min=LOG_CLIP)))) + f(f(1 - y) * f(torch.log(torch.clamp(
-                f(1 - pred), min=LOG_CLIP))))), dim=-1))
+        terms = fma(y, log(torch.maximum(pred, clip)),
+                    f(f(1 - y) * log(torch.maximum(f(1 - pred), clip))))
+        if pred.shape[-1] == 1:  # XLA folds a sum over one class away
+            return -terms[..., 0]
+        for j in range(pred.shape[-1]):
+            acc = f(acc + terms[..., j])
+        return -acc
     if act == ACT_SOFTMAX:
-        return -f(torch.sum(f(y * f(torch.log(torch.clamp(
-            pred, min=LOG_CLIP)))), dim=-1))
-    return f(torch.mean(f(f(pred - y) ** 2), dim=-1))
+        logs = log(torch.maximum(pred, clip))
+        for j in range(pred.shape[-1]):
+            acc = fma(y[..., j], logs[..., j], acc)
+        return -acc
+    d = f(pred - y)
+    for j in range(pred.shape[-1]):
+        acc = fma(d[..., j], d[..., j], acc)
+    return f(acc * c(float(np.float32(1) / np.float32(pred.shape[-1]))))
 
 
 def sample_hits(pred: torch.Tensor, labels: torch.Tensor,
@@ -163,12 +252,31 @@ def sample_hits(pred: torch.Tensor, labels: torch.Tensor,
     return ((guess == labels) & (weights > 0)).to(torch.int32)
 
 
+def sign(x: torch.Tensor) -> torch.Tensor:
+    """``jnp.sign``: -1, +1, or the zero (or NaN) itself (``torch.sign``
+    gives +0 for -0 and NaN)."""
+    return torch.where(x > 0, torch.ones_like(x),
+                       torch.where(x < 0, -torch.ones_like(x), x))
+
+
 def regular_grad(w: torch.Tensor, reg: int, coef: float) -> torch.Tensor:
     if reg == REG_L1:
-        return f(coef * torch.sign(f(w)))
+        return f(coef * sign(f(w)))
     if reg == REG_L2:
         return f(coef * f(w))
     return torch.zeros_like(w)
+
+
+def regular_fma(w: torch.Tensor, reg: int, coef: float,
+                g: torch.Tensor) -> torch.Tensor:
+    """``g + reg(w)`` as the reference's dense programs form it: the
+    regularizer's product fused into the add, ``fma(w, coef, g)`` (L2) or
+    ``fma(sign(w), coef, g)`` (L1); without one the ``+ 0`` is folded
+    away and ``g`` is returned as it is."""
+    if reg == REG_NONE:
+        return g
+    w = f(w)
+    return fma(sign(w) if reg == REG_L1 else w, _scalar(coef, w), g)
 
 
 def _scalar(x: float, like: torch.Tensor) -> torch.Tensor:
@@ -202,20 +310,40 @@ def gather_ids(keys: torch.Tensor, rows: int) -> torch.Tensor:
 
 # -- K11 --
 
-def sparse_lr_forward_plain(table: Table, keys: torch.Tensor,
-                            values: torch.Tensor,
-                            labels: Optional[torch.Tensor],
-                            weights: Optional[torch.Tensor], act: int,
-                            ftrl: Optional[Ftrl] = None):
-    """Plain version of K11: ``pred`` without labels, else ``(pred,
-    diff, loss * weight, hit)``; every operation flushed, as the
-    reference's (ROADMAP C12)."""
+#: Terms a K11 lane loads at once (``kTerms``).
+FWD_TERMS = 8
+
+
+def forward_lanes(K: int, C: int) -> int:
+    """K11's lanes a sample (``G``): for one class the least power of two
+    that leaves a lane at most ``FWD_TERMS`` of the K positions (at most
+    32: 8 at criteo's K of 39, or 64 padded); a warp for several
+    classes."""
+    if C != 1:
+        return 32
+    lanes = 1
+    while lanes < 32 and lanes * FWD_TERMS < K:
+        lanes *= 2
+    return lanes
+
+
+def _forward_rows(table: Table, keys: torch.Tensor,
+                  ftrl: Optional[Ftrl]) -> torch.Tensor:
+    """The rows ``w[keys]`` (or FTRL's weights of them), flushed."""
     ids = gather_ids(keys, (table if ftrl is None else table[0]).shape[0])
     if ftrl is None:
-        rows = f(table[ids])
-    else:
-        rows = ftrl_weights(table[0][ids], table[1][ids], ftrl)
-    pred = activation(dot(f(values)[..., None], rows, 1), act)
+        return f(table[ids])
+    return ftrl_weights(table[0][ids], table[1][ids], ftrl)
+
+
+def dense_lr_forward_plain(logits: torch.Tensor,
+                           labels: Optional[torch.Tensor],
+                           weights: Optional[torch.Tensor], act: int):
+    """Plain version of K21, and K11's stages after its logits: ``pred``
+    without labels, else ``(pred, diff, loss * weight, hit)``, every
+    operation flushed and formed as the reference's programs form it
+    (ROADMAP C14)."""
+    pred = activation(logits, act)
     if labels is None:
         return pred
     y = onehot(labels, pred.shape[1])
@@ -223,6 +351,83 @@ def sparse_lr_forward_plain(table: Table, keys: torch.Tensor,
     diff = f(f(pred - y) * weights[:, None])
     return (pred, diff, f(sample_loss(pred, y, act) * weights),
             sample_hits(pred, labels, weights))
+
+
+def sparse_lr_forward_plain(table: Table, keys: torch.Tensor,
+                            values: torch.Tensor,
+                            labels: Optional[torch.Tensor],
+                            weights: Optional[torch.Tensor], act: int,
+                            ftrl: Optional[Ftrl] = None):
+    """Plain version of K11: ``pred`` without labels, else ``(pred,
+    diff, loss * weight, hit)``; every operation flushed, as the
+    reference's (ROADMAP C12); the logits summed in torch's order."""
+    rows = _forward_rows(table, keys, ftrl)
+    return dense_lr_forward_plain(dot(f(values)[..., None], rows, 1),
+                                  labels, weights, act)
+
+
+def sparse_lr_forward_ordered(table: Table, keys: torch.Tensor,
+                              values: torch.Tensor,
+                              labels: Optional[torch.Tensor],
+                              weights: Optional[torch.Tensor], act: int,
+                              ftrl: Optional[Ftrl] = None):
+    """K11's own summation order on the CPU, the model its results are
+    held to bit for bit: with ``G = forward_lanes(K, C)``, lane g sums
+    the products of positions g, g + G, ... in order from +0, then the
+    lanes' xor tree (``s[i] + s[i ^ o]`` for o = G/2, ..., 1); then the
+    plain version's elementwise stages."""
+    rows = _forward_rows(table, keys, ftrl)
+    terms = f(f(values)[..., None] * rows)            # [B, K, C]
+    B, K, C = terms.shape
+    G = forward_lanes(K, C)
+    acc = terms.new_zeros((B, G, C))
+    for k0 in range(0, K, G):
+        n = min(G, K - k0)
+        acc[:, :n] = f(acc[:, :n] + terms[:, k0:k0 + n])
+    lane = torch.arange(G, device=terms.device)
+    o = G // 2
+    while o:
+        acc = f(acc + acc[:, lane ^ o])
+        o //= 2
+    return dense_lr_forward_plain(acc[:, 0], labels, weights, act)
+
+
+# -- K21 --
+
+def dense_lr_forward(logits: torch.Tensor,
+                     labels: Optional[torch.Tensor] = None,
+                     weights: Optional[torch.Tensor] = None,
+                     act: int = ACT_SIGMOID):
+    """K21 on float32 ``logits [B, C]`` (``x @ w``); ``labels`` int32 and
+    ``weights`` float32 ``[B]``, both or neither. Returns what
+    ``sparse_lr_forward`` returns."""
+    if is_plain(logits):
+        return dense_lr_forward_plain(logits, labels, weights, act)
+    dev = logits.device
+    require(logits, "logits", torch.float32, dev, 2)
+    B, C = logits.shape
+    pred = torch.empty((B, C), dtype=torch.float32, device=dev)
+    diff = loss = hit = None
+    if labels is not None:
+        require(labels, "labels", torch.int32, dev, 1)
+        require(weights, "weights", torch.float32, dev, 1)
+        if labels.shape[0] != B or weights.shape[0] != B:
+            raise ValueError("labels and weights need one entry a sample")
+        diff = torch.empty((B, C), dtype=torch.float32, device=dev)
+        loss = torch.empty(B, dtype=torch.float32, device=dev)
+        hit = torch.empty(B, dtype=torch.int32, device=dev)
+    lib = build.library()
+    build.check(lib.mv_dense_lr_forward(
+        logits.data_ptr(), B, C, _ptr(labels), _ptr(weights), act,
+        float(np.float32(1) / np.float32(C)), pred.data_ptr(), _ptr(diff),
+        _ptr(loss), _ptr(hit), stream_of(logits)), "dense_lr_forward")
+    dense_lr_forward.launches += 1
+    if labels is None:
+        return pred
+    return pred, diff, loss, hit
+
+
+dense_lr_forward.launches = 0
 
 
 def _check_table(table: Table, ftrl: Optional[Ftrl]) -> torch.Tensor:
@@ -278,8 +483,9 @@ def sparse_lr_forward(table: Table, keys: torch.Tensor,
         None if ftrl is None else table[1].data_ptr(), w.shape[0], C,
         keys.data_ptr(), values.data_ptr(), B, K, _ptr(labels),
         _ptr(weights), act, int(ftrl is not None), f.inv_alpha, f.beta,
-        f.lambda1, f.lambda2, pred.data_ptr(), _ptr(diff), _ptr(loss),
-        _ptr(hit), stream_of(w)), "sparse_lr_forward")
+        f.lambda1, f.lambda2, forward_lanes(K, C),
+        float(np.float32(1) / np.float32(C)), pred.data_ptr(), _ptr(diff),
+        _ptr(loss), _ptr(hit), stream_of(w)), "sparse_lr_forward")
     sparse_lr_forward.launches += 1
     if labels is None:
         return pred

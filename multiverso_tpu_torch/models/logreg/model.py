@@ -5,7 +5,8 @@ Applications/LogisticRegression/src/model/model.cpp, model/ps_model.cpp).
 One step a minibatch: for sparse input the kernels K11 and K12
 (``objective.SparseStep``) score the batch and update the touched rows
 in place — the reference's jitted forward, backward and update with
-its donated buffers; for dense input plain torch matmuls. The PS
+its donated buffers; for dense input torch matmuls around K21 and the
+update formed as the reference's programs form it (ROADMAP C14). The PS
 variant keeps the reference's structure — pull every
 ``sync_frequency`` minibatches (ref: ps_model.cpp:236-271), push
 lr-scaled deltas (ref: ps_model.cpp:185-203, updater.cpp:55-70) that
@@ -31,6 +32,8 @@ import numpy as np
 import torch
 
 from ... import create_array_table, create_matrix_table
+from ...kernels.flush import flush as f
+from ...kernels.flush import fma, sqrt
 from ...kernels.logreg import SettleFlag, ftrl_weights
 from ...runtime.zoo import current_zoo, resolve_device
 from ...util.log import CHECK
@@ -55,6 +58,12 @@ def _args(batch: Batch, device: torch.device):
         return (torch.from_numpy(batch.x).to(device), labels, weights)
     return (torch.from_numpy(batch.keys.astype(np.int32)).to(device),
             torch.from_numpy(batch.values).to(device), labels, weights)
+
+
+def _lr(value: float, like: torch.Tensor) -> torch.Tensor:
+    """A float32 scalar on ``like``'s device (the reference passes the
+    learning rate as a float32 argument)."""
+    return torch.tensor(value, dtype=torch.float32, device=like.device)
 
 
 def _reg_keeps_plus(config: Configure) -> bool:
@@ -109,7 +118,10 @@ class LocalModel:
                                   settle=self._settle)[0]
         else:
             loss_sum, _, grad = self._step(self._w, *args)
-            self._w = self._w - (grad * lr if self._scale_lr else grad)
+            # The reference's fused program contracts ``w - grad * lr``
+            # into one fused multiply-add (ROADMAP C14).
+            self._w = fma(-grad, _lr(lr, grad), self._w) if self._scale_lr \
+                else f(f(self._w) - grad)
         self.update_count += 1
         return float(loss_sum)
 
@@ -208,10 +220,12 @@ class PSModel:
                                        delta[:pushed])
         else:
             loss_sum, _, grad = self._step(self._w, *args)
-            delta = grad * lr if self._scale_lr else grad
+            # ``g * lr`` and ``w - delta`` are programs of their own in
+            # the reference: each rounds and flushes.
+            delta = f(grad * _lr(lr, grad)) if self._scale_lr else grad
             self._table.add_async(delta.reshape(-1))
             # Applied locally too so training continues between pulls.
-            self._w = self._w - delta
+            self._w = f(f(self._w) - delta)
         self.update_count += 1
         self._batch_count += 1
         if self._batch_count % config.sync_frequency == 0:
@@ -292,13 +306,17 @@ class FTRLModel:
             loss_sum = self._step((self._z, self._n), *args, push=push,
                                   settle=self._settle)[0]
         else:
-            z, n = self._z, self._n
+            z, n = f(self._z), f(self._n)
             w = ftrl_weights(z, n, self._ftrl)
             loss_sum, _, g = self._step(w, *args)
-            sigma = (torch.sqrt(n + g * g) - torch.sqrt(n)) \
-                / torch.tensor(self._ftrl.alpha, device=self.device)
-            push = (g - sigma * w, g * g)
-            self._z, self._n = z + push[0], n + push[1]
+            # As the reference's fused program forms it (ROADMAP C14):
+            # ``n + g * g`` fused, ``/ alpha`` a product by ``1/alpha``,
+            # ``sigma * w`` rounded before ``g - sigma * w``.
+            n_new = fma(g, g, n)
+            sigma_w = f(f(f(sqrt(n_new) - sqrt(n)) * _lr(
+                self._ftrl.inv_alpha, g)) * w)
+            push = (f(g - sigma_w), f(g * g))
+            self._z, self._n = f(z + push[0]), n_new
         if self._use_ps:
             # Push the FTRL gradient pair {delta_z, delta_n}
             # (ref: util/data_type.h:13-54).

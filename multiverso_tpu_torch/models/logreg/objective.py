@@ -4,10 +4,11 @@ Port of ``multiverso_tpu/models/logreg/objective.py`` (ref:
 Applications/LogisticRegression/src/objective/objective.cpp,
 sigmoid_objective.h, softmax_objective.h). One minibatch at a time:
 ``logits = x @ w`` for dense input, with the gradient ``xᵀ diff``
-(plain matmuls, as the reference leaves them to XLA); for sparse input
-the hand-written kernels K11 (gather, dot, activation, loss) and K12
-(the gradient over the touched rows, their regularization and the
-update, in place) of ``kernels/logreg.py``. Semantics preserved:
+(plain matmuls, as the reference leaves them to XLA) and the kernel K21
+(activation, diff, loss) between them; for sparse input the
+hand-written kernels K11 (gather, dot, activation, loss) and K12 (the
+gradient over the touched rows, their regularization and the update,
+in place) of ``kernels/logreg.py``. Semantics preserved:
 
 - diff = predict - onehot(label) (ref: objective.cpp Diff);
 - displayed loss: clipped-log loss for sigmoid/softmax (MathLog clips at
@@ -27,6 +28,7 @@ from typing import Callable, Optional
 import torch
 
 from ...kernels import logreg as lrk
+from ...kernels.flush import flush as f
 from .config import Configure
 
 
@@ -43,46 +45,49 @@ def _reg_code(regular_type: str) -> int:
                                                     lrk.REG_NONE)
 
 
-_onehot = lrk.onehot
-
-
-def _regular_grad(regular_type: str, coef: float) -> Callable:
-    code = _reg_code(regular_type)
-    return lambda w: lrk.regular_grad(w, code, coef)
-
-
-def _activation_and_loss(objective_type: str):
-    """Returns (activation, per-sample loss(pred, onehot))."""
-    code = _act_code(objective_type)
-    return (lambda z: lrk.activation(z, code),
-            lambda p, y: lrk.sample_loss(p, y, code))
-
-
-def _count_correct(pred, labels, weights) -> torch.Tensor:
-    return lrk.sample_hits(pred, labels, weights).sum()
-
-
 def ftrl_params(config: Configure) -> lrk.Ftrl:
     return lrk.Ftrl(config.alpha, config.beta, config.lambda1,
                     config.lambda2)
 
 
+def dense_count(weights: torch.Tensor) -> torch.Tensor:
+    """``max(#(weight > 0), 1)`` as a one-element float32 tensor."""
+    return torch.clamp(torch.sum(weights > 0), min=1).to(
+        torch.float32).reshape(1)
+
+
+def dense_grad(gsum: torch.Tensor, count: torch.Tensor, w: torch.Tensor,
+               reg: int, coef: float) -> torch.Tensor:
+    """The gradient from ``x.T @ diff``: ``gsum / count + reg(w)``, the
+    division an IEEE division and the regularizer's product fused into
+    the add (``lrk.regular_fma``)."""
+    return lrk.regular_fma(w, reg, coef, f(f(gsum) / count))
+
+
+def dense_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` on flushed inputs, flushed: a plain float32 product that
+    sums in another order than the reference's dot (full float32 on the
+    card: no TF32)."""
+    return f(torch.matmul(f(a), f(b)))
+
+
 def make_dense_step(config: Configure) -> Callable:
     """(w, x, labels, weights) -> (loss_sum, correct, grad). ``w`` is
     [input_size, output_size]; grad is batch-averaged
-    (ref: model.cpp:78-103 averages delta over the minibatch)."""
-    act, loss_fn = _activation_and_loss(config.objective_type)
-    reg = _regular_grad(config.regular_type, config.regular_coef)
-    classes = max(config.output_size, 1)
+    (ref: model.cpp:78-103 averages delta over the minibatch). The two
+    products are ``torch.matmul`` (``dense_matmul``); between them K21
+    (``lrk.dense_lr_forward``) forms the elementwise stages, and
+    ``dense_grad`` the gradient, as the reference's XLA compiles them."""
+    act = _act_code(config.objective_type)
+    reg = _reg_code(config.regular_type)
+    coef = config.regular_coef
 
     def step(w, x, labels, weights):
-        pred = act(x @ w)
-        y = _onehot(labels, classes)
-        diff = (pred - y) * weights[:, None]
-        count = torch.clamp(torch.sum(weights > 0), min=1)
-        grad = x.T @ diff / count + reg(w)
-        loss_sum = torch.sum(loss_fn(pred, y) * weights)
-        return loss_sum, _count_correct(pred, labels, weights), grad
+        _, diff, loss, hit = lrk.dense_lr_forward(dense_matmul(x, w),
+                                                  labels, weights, act)
+        grad = dense_grad(dense_matmul(x.T, diff), dense_count(weights), w,
+                          reg, coef)
+        return f(loss.sum()), hit.sum(), grad
 
     return step
 
@@ -110,8 +115,7 @@ class SparseStep:
                  settle: Optional[lrk.SettleFlag] = None):
         _, diff, loss, hit = lrk.sparse_lr_forward(
             table, keys, values, labels, weights, self.act, self.ftrl)
-        count = torch.clamp(torch.sum(weights > 0), min=1).to(
-            torch.float32).reshape(1)
+        count = dense_count(weights)
         rows, delta = lrk.sparse_lr_apply(
             table, keys, values, diff, count, reg=self.reg, coef=self.coef,
             scale=scale, ftrl=self.ftrl, delta_rows=delta_rows, push=push,
@@ -141,7 +145,7 @@ def make_predict(config: Configure,
                                          ftrl=ftrl)
     else:
         def predict(w, x):
-            return lrk.activation(x @ w, code)
+            return lrk.dense_lr_forward(dense_matmul(x, w), act=code)
     return predict
 
 
