@@ -180,7 +180,29 @@ Phases, each fatal on failure:
    ``overlap=False`` again (words/s, ``MA_COMM_STALL``, the host's peak
    memory): the two modes apply the same average at the same point, so
    each rank's final tables must be bit-identical between sync and
-   overlap and between the two sync runs (K3 is deterministic).
+   overlap and between the two sync runs (K3 is deterministic);
+13. the BSP sync server (``-sync``): ``ps_bsp2``, the main path on two
+   workers of one server, ``LocalCluster(2, argv=["-sync=true",
+   "-metrics_interval_s=0.5"], roles=["all", "worker"])``, both workers
+   on the same corpus with the same seeds (K1, K2, K4 and K3 against
+   their plain versions as in phase 3; 8 blocks a worker counted, every
+   kernel launched, words/s of both workers, then profiled; finite
+   tables; the topic corpus through the same cluster on the card and on
+   the CPU with the same draws), beside ``ps_async2``, the same run
+   without ``-sync``; ``save_checkpoint`` of ``ps_bsp2``'s server
+   tables and ``load_checkpoint`` into a fresh zoo, every row of both
+   tables bit for bit, and a torn table file refused with nothing
+   restored; ``tbl_bsp_default`` and ``tbl_bsp_momentum``: a dense
+   1,000,000 x 50 table on two ranks under ``-sync``, 10 rounds in
+   which each worker adds every 10th row (offset 5 rows a worker) and
+   Gets both workers' rows (K2, and K3 or K13 under momentum, against
+   their plain versions at a server shard's shapes and launched; every
+   Get bit for bit the same rounds on the CPU and, under the default
+   rule, the sum of exactly both workers' adds so far); and backup
+   workers: ``-backup_worker_ratio=50``, worker 1 retires
+   (``finish_train``) after 3 rounds, worker 0 makes all 10, the table
+   holds the sum of every add bit for bit, and the controller's
+   ``ClusterMetrics`` counts both ranks' ``SERVER_PROCESS_ADD``.
 
 Phases 1-6 are as the second slice left them, the small-input checks
 now also comparing example counts, and K2 and K3 timed over all the
@@ -189,8 +211,9 @@ Huffman tree of the bench dictionary serves every HS model of the run.
 
 Prints one JSON ``kernels`` line (one entry a path and kernel: ``ps``,
 ``local_<mode>``, ``ps_<mode>``, ``hb_local_<mode>``, ``hb_ps_<mode>``,
-``lr_<path>``, ``tbl_<path>``, ``ps_<n>srv[_seg]``, ``ma_mesh4`` or
-``ma_sgd4``, with that path's launches), the card's name and
+``lr_<path>``, ``tbl_<path>``, ``ps_<n>srv[_seg]``, ``ma_mesh4``,
+``ma_sgd4``, ``ps_bsp2`` or ``tbl_bsp_<rule>``, with that path's
+launches), the card's name and
 power limit, and
 as its last line ``{"ok": true, "device": {...}}``. Exits non-zero with
 no result when CUDA is not available or the package is missing.
@@ -200,8 +223,8 @@ Usage: ``python3 chip_smoke.py`` (one card). ``--profile DIR`` adds a
 device's busy share and the host monitors) and keeps the Chrome trace
 of every counted path. ``--multiserver-only`` builds the kernels and
 runs phase 11 alone (its ``kernels`` line and the card's line, no
-result line), ``--ma-only`` phase 12 and ``--logreg-only`` phase 9
-alike; ``--step-kernels-only [NAMES]``
+result line), ``--ma-only`` phase 12, ``--bsp-only`` phase 13 and
+``--logreg-only`` phase 9 alike; ``--step-kernels-only [NAMES]``
 holds and times the word2vec step kernels K4-K8 alone at every path's
 shape (``step_result``; K8 also in its in-place form and the PS
 per-pair block step), K12 with K20 at ``lr_sparse_local``'s and K19
@@ -212,7 +235,7 @@ runs, no result line; NAMES keeps the kernels named, e.g.
 ``pairlist_ns_grad`` K9's forms beside the host-batch paths'; these,
 ``mesh_allreduce`` and ``sparse_lr_apply`` build no corpus).
 ``--cpu-rehearsal`` runs
-phases 2 and 4-12 at a tiny size
+phases 2 and 4-13 at a tiny size
 on the CPU with the plain versions (no kernels, no timing, no result
 line, exit code 3) to check the control flow on a host without a card.
 """
@@ -225,6 +248,7 @@ import itertools
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -1002,7 +1026,19 @@ def check_wide_blocks(torch, device) -> None:
 
 def check_kernels(torch, trainer, card: str):
     """Phase 3: every kernel of the PS path against its plain version,
-    timed."""
+    timed (``ps_kernel_checks``), then the kernels' other forms."""
+    results = ps_kernel_checks(torch, trainer)
+    check_span_layouts(trainer.config.embedding_size)
+    check_wide_blocks(torch, trainer.device)
+    check_row_forms(torch, trainer.device)
+    check_subnormals(torch, trainer.device)
+    return report(results, card, "ps")
+
+
+def ps_kernel_checks(torch, trainer, path: str = "ps"):
+    """K1 on the corpus, K2 and K3 into both tables at block 0's ids and
+    K4 at block 0's call of a PS SGNS trainer, each against its plain
+    version and timed."""
     from multiverso_tpu_torch.kernels import rows, sgns
     dev = trainer.device
     C, B = trainer._C, trainer._B
@@ -1041,13 +1077,9 @@ def check_kernels(torch, trainer, card: str):
         (C * D + urows.numel() + C * 2 * W) * 4
         + (C * D + urows.numel()) * 4 + 8, flops, "banded_sgns_grad",
         "multiverso_tpu_torch/csrc/banded_sgns.cu",
-        "multiverso_tpu/models/wordembedding/device_train.py:729", "ps"))
+        "multiverso_tpu/models/wordembedding/device_train.py:729", path))
     del v, urows, table_in, table_out
-    check_span_layouts(D)
-    check_wide_blocks(torch, dev)
-    check_row_forms(torch, dev)
-    check_subnormals(torch, dev)
-    return report(results, card, "ps")
+    return results
 
 
 def timed_blocks(trainer, seed: int, blocks: int):
@@ -4530,6 +4562,502 @@ def run_step_kernels_phase(torch, np, mv, device, dictionary, tokenized,
     return results
 
 
+# -- phase 13: the BSP sync server, backup workers, metrics, checkpoints --
+
+# ps_bsp2: the main path (PS SGNS at phase 2's settings) on two workers of
+# one server under -sync (tests/test_wordembedding.py:585-613 at the
+# bench's widths), beside ps_async2, the same two workers without -sync.
+# tbl_bsp_<rule>: bench.py matrix_bandwidth's table (1M x 50) on two ranks
+# (worker and server each) under -sync, BSP_ROUNDS rounds; in the backup
+# run worker 1 retires after BSP_RETIRE rounds.
+BSP_ARGV = ["-sync=true", "-metrics_interval_s=0.5"]
+BSP_ROUNDS, BSP_RETIRE = 10, 3
+BSP_HYP = dict(momentum=0.9, learning_rate=0.01)
+
+
+def bsp_run(n: int, argv, device, body, roles=None):
+    """``body(rank)`` on ``LocalCluster(n, argv, roles)`` on ``device``,
+    the flag registry at its defaults before and after (flags are
+    process-wide and persist across clusters: phase 12 leaves ``-ma``
+    set, this phase ``-sync``, ``-metrics_interval_s`` and
+    ``-updater_type``)."""
+    from multiverso_tpu_torch.runtime.cluster import LocalCluster
+    from multiverso_tpu_torch.util import configure
+    configure.reset_flags()
+    cluster = LocalCluster(n, argv=list(argv), roles=roles,
+                           device=str(device))
+    cluster.timeout = 900.0
+    try:
+        return cluster.run(body)
+    finally:
+        configure.reset_flags()
+
+
+def bsp_metrics(zoo) -> dict:
+    """Rank 0's controller view after every rank's ``metrics_flush``
+    and a barrier: {rank: SERVER_PROCESS_ADD count}."""
+    view = zoo._actors["controller"].metrics.cluster_view()
+    return {r: int(s["monitors"].get("SERVER_PROCESS_ADD", {})
+                   .get("count", 0)) for r, s in view["ranks"].items()}
+
+
+def bsp_ps_path(torch, np, device, dictionary, tokenized, card: str,
+                workdir: str, profile_dir: str, dim: int, scale_down: int,
+                path: str, argv, checks: bool, checkpoint: str = ""):
+    """Two workers (``roles=["all", "worker"]``: one server) train PS
+    SGNS at phase 2's settings on the same corpus with the same seeds
+    under ``argv``: a warm-up block, rank 0's kernel checks (``checks``,
+    on the card), BLOCKS blocks a worker with the launch counts reset
+    just before and read just after (both workers' words over the wall
+    time), the same blocks profiled, finite tables, and the controller's
+    metrics view. With ``checkpoint`` rank 0 saves the server tables
+    there. Returns (kernel results, launch counts, rank 0's tables on the
+    card after the run)."""
+    from multiverso_tpu_torch import current_zoo, kernels
+    from multiverso_tpu_torch.io import save_checkpoint
+    from multiverso_tpu_torch.models.wordembedding import (
+        PSDeviceCorpusTrainer, PSWord2Vec)
+    from multiverso_tpu_torch.util.dashboard import Dashboard
+    cuda = device.type == "cuda"
+    out = {"words": [0, 0]}
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def body(rank):
+        t0, prof = time.perf_counter(), None
+        model = PSWord2Vec(bsp_config(dim), dictionary)
+        trainer = PSDeviceCorpusTrainer(model, tokenized,
+                                        CENTERS // scale_down)
+        zoo = current_zoo()
+        trainer.train_epoch(seed=99, max_steps=1)  # warm-up, calibrates
+        if rank == 0:
+            log(f"[{path}] 2 workers, 1 server, {argv} | model + trainer "
+                f"+ warm-up {time.perf_counter() - t0:.1f}s")
+            if checks and cuda:
+                out["checks"] = report(ps_kernel_checks(torch, trainer,
+                                                        path), card, path)
+            sync()
+            Dashboard.reset()
+            kernels.reset_launch_counts()
+        zoo.barrier()
+        words0 = model.trained_words
+        t0 = time.perf_counter()
+        loss, examples = trainer.train_epoch(seed=0, max_steps=BLOCKS)
+        sync()  # train_epoch ends in a barrier: both workers are done
+        elapsed = time.perf_counter() - t0
+        out["words"][rank] = model.trained_words - words0
+        if not (math.isfinite(loss) and examples > 0):
+            raise AssertionError(f"{path} rank {rank}: loss {loss}, "
+                                 f"examples {examples}")
+        zoo.barrier()
+        if rank == 0:
+            out["counts"] = kernels.launch_counts()
+            words = sum(out["words"])
+            log(f"[{path}] {card} | {BLOCKS} blocks a worker in "
+                f"{elapsed:.4f}s | {words / elapsed:.0f} words/s (both "
+                f"workers) | {elapsed / BLOCKS * 1e3:.3f} ms a block | "
+                f"examples {examples:.0f} a worker | avg loss "
+                f"{loss / max(examples, 1):.4f}")
+            log(f"[{path}] kernel launches {out['counts']}")
+            for line in Dashboard.display().splitlines():
+                log(f"[{path}] {line}")
+            if cuda:
+                import torch.profiler as tp
+                prof = tp.profile(activities=[tp.ProfilerActivity.CUDA])
+                prof.start()
+        zoo.barrier()
+        t0 = time.perf_counter()
+        trainer.train_epoch(seed=7, max_steps=BLOCKS)
+        sync()
+        if prof is not None:
+            wall = time.perf_counter() - t0
+            prof.stop()
+            trace = os.path.join(profile_dir or workdir,
+                                 f"{path}_trace.json")
+            n_kernels, busy_ms, kernel_ms = trace_kernels(prof, trace)
+            log(f"[{path}] profiled: {n_kernels} kernels, device "
+                f"{kernel_ms / BLOCKS:.4f} ms a block of kernels (both "
+                f"workers), busy {busy_ms:.2f} ms of {wall * 1e3:.2f} ms "
+                f"wall ({busy_ms / (wall * 1e3):.1%})")
+        zoo.barrier()
+        if rank == 0:
+            check_tables(np, model, path)
+            if checkpoint:
+                t0 = time.perf_counter()
+                n = save_checkpoint(checkpoint)
+                log(f"[{path}] checkpoint: {n} server tables saved in "
+                    f"{time.perf_counter() - t0:.1f}s")
+                out["tables"] = [model._in_table.get_device(),
+                                 model._out_table.get_device()]
+        zoo.metrics_flush()
+        zoo.barrier()
+        if rank == 0 and any(a.startswith("-metrics_interval_s=")
+                             for a in argv):
+            log(f"[{path}] controller metrics: SERVER_PROCESS_ADD by rank "
+                f"{dict(sorted(bsp_metrics(zoo).items()))}")
+
+    bsp_run(2, argv, device, body, roles=["all", "worker"])
+    return out.get("checks", []), out.get("counts", {}), out.get("tables")
+
+
+def bsp_config(dim: int, **flags):
+    from multiverso_tpu_torch.models.wordembedding import Word2VecConfig
+    return Word2VecConfig(**{**dict(
+        embedding_size=dim, window=WINDOW, negative=NEG, epochs=3,
+        min_count=1, sample=1e-3, use_ps=True, neg_block=NEG_BLOCK),
+        **flags})
+
+
+def bsp_small_run(torch, device, workdir: str):
+    """The tests' topic corpus through two workers of one server under
+    -sync (6 blocks of 128 centers, draws from one CPU generator a
+    worker, the same seeds): rank 0's (losses a block, examples, in
+    rows, out rows)."""
+    import numpy as np
+    from multiverso_tpu_torch.models.wordembedding import (
+        Dictionary, PSDeviceCorpusTrainer, PSWord2Vec, TokenizedCorpus,
+        TorchDraws)
+    path = write_topics(workdir)
+    dictionary = Dictionary.build(path, min_count=1)
+    tokenized = TokenizedCorpus.build(dictionary, path)
+
+    def body(rank):
+        model = PSWord2Vec(bsp_config(16, window=3, sample=1e-2),
+                           dictionary)
+        trainer = PSDeviceCorpusTrainer(
+            model, tokenized, centers_per_step=128,
+            draws=TorchDraws(device, draw_device="cpu"))
+        losses = []
+        _, examples = trainer.train_epoch(
+            seed=5, max_steps=6, block_hook=lambda _w: losses.append(
+                float(trainer.last_loss)))
+        return (np.array(losses), examples, model._in_table.get(),
+                model._out_table.get())
+
+    return bsp_run(2, ["-sync=true"], device, body,
+                   roles=["all", "worker"])[0]
+
+
+def bsp_checkpoint(torch, np, mv, device, dictionary, dim: int,
+                   prefix: str, saved) -> None:
+    """``load_checkpoint`` of ps_bsp2's server tables into a fresh zoo
+    on ``device``: every row of both tables bit for bit the saved ones;
+    then a torn table file raises ``CheckpointError`` with nothing
+    restored."""
+    from multiverso_tpu_torch.io import CheckpointError, load_checkpoint
+    from multiverso_tpu_torch.models.wordembedding import PSWord2Vec
+
+    def bits(t):
+        return t.contiguous().view(torch.int32)
+
+    mv.init([], device=str(device))
+    try:
+        model = PSWord2Vec(bsp_config(dim), dictionary)
+        tables = (model._in_table, model._out_table)
+        t0 = time.perf_counter()
+        n = load_checkpoint(prefix)
+        loaded = [t.get_device() for t in tables]
+        for name, got, want in zip(("in", "out"), loaded, saved):
+            if got.shape != want.shape \
+                    or not torch.equal(bits(got), bits(want)):
+                raise AssertionError(f"checkpoint: the {name} table's "
+                                     f"rows differ after the load")
+        log(f"[ps_bsp2] checkpoint: {n} tables loaded into a fresh zoo in "
+            f"{time.perf_counter() - t0:.1f}s; every row of both tables "
+            f"bit for bit the saved ones ({loaded[0].shape[0]} x "
+            f"{loaded[0].shape[1]} each)")
+        rows = np.array([0, 5], np.int32)
+        tables[0].add_rows(rows, np.ones((2, dim), np.float32))
+        live = tables[0].get_device()
+        table_file = f"{prefix}.table0.rank0"
+        with open(table_file, "rb+") as f:
+            f.truncate(os.path.getsize(table_file) - 4)
+        try:
+            load_checkpoint(prefix)
+        except CheckpointError as exc:
+            log(f"[ps_bsp2] checkpoint: a torn table file raised "
+                f"CheckpointError ({str(exc)[:90]}...)")
+        else:
+            raise AssertionError("checkpoint: a torn table file loaded")
+        if not (torch.equal(bits(tables[0].get_device()), bits(live))
+                and torch.equal(bits(tables[1].get_device()),
+                                bits(saved[1]))):
+            raise AssertionError("checkpoint: the torn load restored "
+                                 "something")
+        log("[ps_bsp2] checkpoint: nothing restored from the torn one")
+    finally:
+        mv.shutdown()
+
+
+def bsp_rows(np, R: int, worker: int):
+    """Worker ``worker``'s rows of a round: every TBL_EVERY-th row,
+    offset by half of TBL_EVERY a worker (the workers' rows are
+    disjoint, so a round's sum does not depend on the order in which
+    the server takes the two workers' adds)."""
+    return (np.arange(R // TBL_EVERY, dtype=np.int32) * TBL_EVERY
+            + worker * (TBL_EVERY // 2)).astype(np.int32)
+
+
+def bsp_deltas(np, R: int, C: int, worker: int, rounds: int):
+    rng = np.random.default_rng(17 + worker)
+    n = bsp_rows(np, R, worker).size
+    return [(rng.standard_normal((n, C)) * 0.01).astype(np.float32)
+            for _ in range(rounds)]
+
+
+def bsp_tbl_rounds(torch, np, device, R: int, C: int, rule: str,
+                   rounds=(BSP_ROUNDS, BSP_ROUNDS), extra=(),
+                   profile: bool = False):
+    """A dense R x C table on two ranks (each worker and server) under
+    -sync (and ``extra`` flags), updater ``rule``: in each round worker
+    w adds its rows (``bsp_rows``) and Gets both workers' rows; worker w
+    makes ``rounds[w]`` rounds, and one that stops early retires from
+    the clocks (``finish_train``). Then rank 0 Gets both workers' rows
+    once more, every rank flushes its metrics report, and rank 0 reads
+    the controller's view. Returns (per-rank lists of each round's Get,
+    the final Get, launch counts of the rounds, host ms a round and the
+    profile (device ms, busy share) of rank 0, the metrics by rank)."""
+    import multiverso_tpu_torch as mv
+    from multiverso_tpu_torch import current_zoo, kernels
+    from multiverso_tpu_torch.updater import AddOption
+    cuda = device.type == "cuda"
+    union = np.sort(np.concatenate([bsp_rows(np, R, w) for w in (0, 1)]))
+    out = {"gets": [[], []]}
+
+    def body(rank):
+        deltas = [torch.from_numpy(d).to(device)
+                  for d in bsp_deltas(np, R, C, rank, rounds[rank])]
+        rows = bsp_rows(np, R, rank)
+        table = mv.create_matrix_table(R, C)
+        option = AddOption(worker_id=rank, **BSP_HYP)
+        zoo = current_zoo()
+        zoo.barrier()
+        prof = None
+        if rank == 0:
+            if cuda:
+                torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            if profile and cuda:
+                import torch.profiler as tp
+                prof = tp.profile(activities=[tp.ProfilerActivity.CUDA])
+                prof.start()
+        zoo.barrier()
+        t0 = time.perf_counter()
+        for i in range(rounds[rank]):
+            table.add_rows(rows, deltas[i], option=option)
+            out["gets"][rank].append(table.get_rows(union))
+        if rounds[rank] < max(rounds):
+            zoo.finish_train()
+        if rank == 0:
+            if cuda:
+                torch.cuda.synchronize()
+            out["ms"] = (time.perf_counter() - t0) / rounds[0] * 1e3
+            if prof is not None:
+                prof.stop()
+                with tempfile.TemporaryDirectory() as tmp:
+                    _, busy_ms, kernel_ms = trace_kernels(
+                        prof, os.path.join(tmp, "trace.json"))
+                out["profile"] = (kernel_ms / rounds[0],
+                                  busy_ms / (out["ms"] * rounds[0]))
+        zoo.barrier()
+        if rank == 0:
+            out["counts"] = kernels.launch_counts()
+            out["final"] = table.get_rows(union)
+        zoo.metrics_flush()
+        zoo.barrier()
+        if rank == 0:
+            out["metrics"] = bsp_metrics(zoo)
+
+    bsp_run(2, ["-sync=true", f"-updater_type={rule}",
+                "-metrics_interval_s=0.5", *extra], device, body)
+    return out
+
+
+def bsp_shadow(np, R: int, C: int, rounds):
+    """The default rule's table after each worker's adds: worker w's rows
+    hold the sequential float32 sum of its first k deltas. Returns a
+    function (k0, k1) -> the rows of ``bsp_rows``' union after k_w adds
+    of worker w."""
+    union = np.sort(np.concatenate([bsp_rows(np, R, w) for w in (0, 1)]))
+    sums = []
+    for w in (0, 1):
+        acc = np.zeros((bsp_rows(np, R, w).size, C), np.float32)
+        partial = [acc.copy()]
+        for d in bsp_deltas(np, R, C, w, rounds[w]):
+            acc = acc + d
+            partial.append(acc.copy())
+        sums.append(partial)
+    where = [np.searchsorted(union, bsp_rows(np, R, w)) for w in (0, 1)]
+
+    def state(k0, k1):
+        values = np.zeros((union.size, C), np.float32)
+        values[where[0]] = sums[0][k0]
+        values[where[1]] = sums[1][k1]
+        return values
+
+    return state
+
+
+def bsp_table_checks(torch, np, device, R: int, C: int, card: str):
+    """K2, K3 (one writer an element: the server's ascending host ids)
+    and K13 under momentum against their plain versions at tbl_bsp's
+    shapes: server 0's shard of the 1M x 50 table (storage 128 columns),
+    worker 0's add ids and the Get's ids of both workers in that shard."""
+    from multiverso_tpu_torch.kernels import rules
+    from multiverso_tpu_torch.tables.matrix_table import row_offsets
+    from multiverso_tpu_torch.updater import AddOption
+    from multiverso_tpu_torch.updater.engine import pad_ids
+    S = 128
+    n = row_offsets(R, 2)[1]
+    gen = torch.Generator(device=device)
+    gen.manual_seed(13)
+    table = torch.randn((n, S), generator=gen, device=device) * 0.1
+    table[:, C:] = 0.0
+    adds = bsp_rows(np, R, 0)
+    adds = adds[adds < n]
+    union = np.sort(np.concatenate([bsp_rows(np, R, w) for w in (0, 1)]))
+    union = union[union < n]
+    ids = torch.from_numpy(pad_ids(adds, n)).to(device)
+    get_ids = torch.from_numpy(pad_ids(union, n)).to(device)
+    delta = torch.randn((adds.size, C), generator=gen, device=device) * 0.01
+    hyp = AddOption(**BSP_HYP).hyper_array()
+    out = {"tbl_bsp_default": [
+        check_scatter(torch, [(table, ids, delta)], C, distinct=True),
+        check_gather(torch, [(table, get_ids)], C)]}
+    state = tbl_state(torch, "momentum", table, gen)
+    out["tbl_bsp_momentum"] = [
+        tbl_check_rule(torch, rules, "momentum",
+                       "multiverso_tpu/updater/rules.py:120", table, state,
+                       [(ids, delta, 0)], [(ids, delta)], hyp, C),
+        dict(out["tbl_bsp_default"][1])]
+    del table, state
+    for path, entries in out.items():
+        report(entries, card, path)
+    return out
+
+
+def bsp_digest(np, arrays) -> str:
+    import hashlib
+    h = hashlib.sha1()
+    for a in arrays:
+        h.update(np.ascontiguousarray(a).tobytes())
+    return h.hexdigest()[:16]
+
+
+def run_bsp_phase(torch, np, mv, device, dictionary, tokenized, card: str,
+                  workdir: str, profile_dir: str, dim: int,
+                  scale_down: int):
+    """Phase 13: the BSP sync server (``-sync``) on the card. ``ps_bsp2``,
+    the main path on two workers of one server under ``-sync`` (K1, K2,
+    K4, K3 against their plain versions, counted and profiled, the topic
+    corpus on the card and on the CPU), beside ``ps_async2`` without it;
+    the checkpoint of its server tables loaded into a fresh zoo bit for
+    bit, and a torn one refused; ``tbl_bsp_default`` and
+    ``tbl_bsp_momentum``, matrix_bandwidth's table on two ranks under
+    ``-sync`` (K2, K3 / K13 checked and counted; every Get of every
+    round bit for bit the same rounds on the CPU, and under the default
+    rule the sum of exactly the adds of both workers' rounds so far);
+    and backup workers (``-backup_worker_ratio=50``): worker 1 retires
+    after BSP_RETIRE rounds, worker 0 finishes all BSP_ROUNDS, the table
+    holds the sum of every add, and the controller's metrics count both
+    ranks' ``SERVER_PROCESS_ADD``. Returns (kernel results, launch
+    counts per path)."""
+    cuda = device.type == "cuda"
+    R = TBL_ROWS // 1000 if scale_down > 1 else TBL_ROWS
+    C = TBL_COLS
+    results, counts = [], {}
+    prefix = os.path.join(workdir, "bsp_ckpt", "ps_bsp2")
+    usage = shutil.disk_usage(workdir)
+    log(f"[phase 13] {workdir}: {usage.free / 2 ** 30:.1f} GiB free for "
+        f"the checkpoint")
+    checks, counts["ps_bsp2"], saved = bsp_ps_path(
+        torch, np, device, dictionary, tokenized, card, workdir,
+        profile_dir, dim, scale_down, "ps_bsp2", BSP_ARGV, True,
+        checkpoint=prefix)
+    results += checks
+    missing = [k for k in PS_KERNELS if counts["ps_bsp2"].get(k, 0) <= 0]
+    if cuda and missing:
+        raise AssertionError(f"ps_bsp2 never launched {missing}")
+    free(torch, device)
+    bsp_checkpoint(torch, np, mv, device, dictionary, dim, prefix, saved)
+    del saved
+    shutil.rmtree(os.path.dirname(prefix))
+    free(torch, device)
+    _, counts["ps_async2"], _ = bsp_ps_path(
+        torch, np, device, dictionary, tokenized, card, workdir,
+        profile_dir, dim, scale_down, "ps_async2", [], False)
+    free(torch, device)
+    compare_small(np, "ps_bsp2, 6 blocks", bsp_small_run(torch, device,
+                                                         workdir),
+                  bsp_small_run(torch, torch.device("cpu"), workdir))
+    checks = bsp_table_checks(torch, np, device, R, C, card) if cuda else {}
+    for rule, need in (("default", ("row_scatter_add", "row_gather")),
+                       ("momentum", ("row_rule_apply", "row_gather"))):
+        path = f"tbl_bsp_{rule}"
+        got = bsp_tbl_rounds(torch, np, device, R, C, rule, profile=cuda)
+        ref = bsp_tbl_rounds(torch, np, torch.device("cpu"), R, C, rule)
+        counts[path] = got["counts"]
+        missing = [k for k in need if counts[path].get(k, 0) <= 0]
+        if cuda and missing:
+            raise AssertionError(f"{path} never launched {missing}")
+        for w in (0, 1):
+            for i, (a, b) in enumerate(zip(got["gets"][w], ref["gets"][w])):
+                if a.tobytes() != b.tobytes():
+                    raise AssertionError(
+                        f"{path}: worker {w}'s Get {i} differs from the "
+                        f"CPU's (max {float(np.abs(a - b).max()):g})")
+        if rule == "default":
+            state = bsp_shadow(np, R, C, (BSP_ROUNDS, BSP_ROUNDS))
+            for w in (0, 1):
+                for i, a in enumerate(got["gets"][w]):
+                    if a.tobytes() != state(i + 1, i + 1).tobytes():
+                        raise AssertionError(
+                            f"{path}: worker {w}'s Get {i} is not the sum "
+                            f"of both workers' first {i + 1} adds")
+        bytes_round = 2 * (bsp_rows(np, R, 0).size * C * 4
+                           + 2 * bsp_rows(np, R, 0).size * C * 4)
+        prof = got.get("profile")
+        log(f"[{path}] {card} | 2 workers x {BSP_ROUNDS} rounds under "
+            f"-sync | {got['ms']:.3f} ms a round (rank 0, host clock"
+            f"{', profiler on' if cuda else ''}) | "
+            f"{bytes_round / (got['ms'] / 1e3) / 1e9:.3f} "
+            f"GB/s (both workers' adds and Gets) | "
+            + (f"device {prof[0]:.4f} ms a round, busy {prof[1]:.1%} | "
+               if prof else "")
+            + f"kernel launches "
+            f"{ {k: v for k, v in got['counts'].items() if v} } | every Get "
+            f"of both workers bit for bit the CPU's"
+            + (" and the sum of exactly both workers' adds so far"
+               if rule == "default" else "")
+            + f" ({bsp_digest(np, got['gets'][0])})")
+        for entry in checks.get(path, []):
+            entry["path"] = path
+            results.append(entry)
+        del got, ref
+        free(torch, device)
+    rounds = (BSP_ROUNDS, BSP_RETIRE)
+    got = bsp_tbl_rounds(torch, np, device, R, C, "default", rounds=rounds,
+                         extra=["-backup_worker_ratio=50"])
+    if len(got["gets"][0]) != BSP_ROUNDS \
+            or len(got["gets"][1]) != BSP_RETIRE:
+        raise AssertionError("backup workers: rounds "
+                             f"{[len(g) for g in got['gets']]}")
+    want = bsp_shadow(np, R, C, rounds)(*rounds)
+    if got["final"].tobytes() != want.tobytes():
+        raise AssertionError("backup workers: the table is not the sum of "
+                             "every add made")
+    adds = got["metrics"]
+    if sorted(adds) != [0, 1] or min(adds.values()) <= 0:
+        raise AssertionError(f"metrics: SERVER_PROCESS_ADD by rank {adds}")
+    log(f"[tbl_bsp backup] -backup_worker_ratio=50: worker 1 retired after "
+        f"{BSP_RETIRE} rounds, worker 0 made all {BSP_ROUNDS}; the table "
+        f"holds the sum of all {sum(rounds)} adds, bit for bit | controller "
+        f"metrics: SERVER_PROCESS_ADD by rank {dict(sorted(adds.items()))}")
+    return results, counts
+
+
 def lr_apply_case(torch, np, device):
     """K11 and K12 (with K20) at ``lr_sparse_local``'s shapes (the first
     of phase 9's batches): held and timed as phase 9 holds them, K12
@@ -4568,6 +5096,10 @@ def main(argv=None) -> int:
     parser.add_argument("--ma-only", action="store_true",
                         help="build, then run phase 12 alone on the "
                              "bench corpus (no result line)")
+    parser.add_argument("--bsp-only", action="store_true",
+                        help="build, then run phase 13 (the BSP sync "
+                             "server) alone on the bench corpus (no "
+                             "result line)")
     parser.add_argument("--logreg-only", action="store_true",
                         help="build, then run phase 9 (logistic "
                              "regression) alone (no result line)")
@@ -4635,10 +5167,11 @@ def main(argv=None) -> int:
             print(json.dumps(kernels_line(results, counts)), flush=True)
             print(card, flush=True)
             return 3 if rehearsal else 0
-        if args.multiserver_only or args.ma_only:
+        if args.multiserver_only or args.ma_only or args.bsp_only:
             dictionary, tokenized = bench_corpus(
                 workdir, sentences or synthetic.SENTENCES)
-            phase = run_ma_phase if args.ma_only else run_multiserver_phase
+            phase = run_ma_phase if args.ma_only else run_bsp_phase \
+                if args.bsp_only else run_multiserver_phase
             results, counts = phase(
                 torch, np, mv, device, dictionary, tokenized, card, workdir,
                 args.profile, dim, 64 if rehearsal else 1)
@@ -4697,7 +5230,8 @@ def main(argv=None) -> int:
                                           workdir, args.profile,
                                           rehearsal),
                   lambda: run_multiserver_phase(torch, np, mv, *common),
-                  lambda: run_ma_phase(torch, np, mv, *common))
+                  lambda: run_ma_phase(torch, np, mv, *common),
+                  lambda: run_bsp_phase(torch, np, mv, *common))
         for number, phase in enumerate(phases, 6):
             t0 = time.perf_counter()
             phase_results, phase_counts = phase()

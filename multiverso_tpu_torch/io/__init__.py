@@ -1,3 +1,6 @@
-"""Stream IO: local files behind the reference's stream factory."""
+"""Stream IO and checkpointing."""
 
-from .stream import Stream, StreamFactory, TextReader  # noqa: F401
+from .stream import (CheckpointError, Stream,  # noqa: F401
+                     StreamFactory, TextReader, load_checkpoint,
+                     read_bytes_or_none, save_checkpoint,
+                     write_bytes_atomic)

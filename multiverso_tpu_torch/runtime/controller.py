@@ -9,10 +9,12 @@ two sub-controllers the in-process slice runs:
 - register: collects one Control_Register (carrying the rank's declared
   role) per rank, assigns dense worker_id/server_id in rank order, then
   broadcasts the node table + counts to every rank
-  (ref: src/controller.cpp:38-80).
+  (ref: src/controller.cpp:38-80);
+- metrics: every rank's ``Control_Metrics`` report folds into
+  ``self.metrics``, a ``ClusterMetrics`` view (``runtime/metrics.py``).
 
-Liveness, rejoin, replica and shard planning, metrics aggregation and
-autotune are later items of the port.
+Liveness, rejoin, replica and shard planning and autotune are later
+items of the port.
 """
 
 from __future__ import annotations
@@ -24,7 +26,9 @@ import numpy as np
 from ..core.blob import Blob
 from ..core.message import Message, MsgType
 from ..core.node import Node, is_server, is_worker
+from ..util import log
 from . import actor as actors
+from . import metrics as metrics_mod
 from .actor import Actor
 
 
@@ -36,6 +40,9 @@ class Controller(Actor):
         self.register_handler(MsgType.Control_Barrier, self._process_barrier)
         self.register_handler(MsgType.Control_Register,
                               self._process_register)
+        self.metrics = metrics_mod.ClusterMetrics()
+        self.register_handler(MsgType.Control_Metrics,
+                              self._process_metrics)
 
     def _process_barrier(self, msg: Message) -> None:
         self._barrier_waiting.append(msg)
@@ -73,3 +80,12 @@ class Controller(Actor):
             reply.push(Blob(counts.copy()))
             self.send_to(actors.COMMUNICATOR, reply)
         self._register_waiting = []
+
+    def _process_metrics(self, msg: Message) -> None:
+        """A rank's periodic metrics snapshot (fire-and-forget)."""
+        payload = metrics_mod.parse_report(msg)
+        if payload is None:
+            log.error("controller: undecodable metrics report from "
+                      "rank %d", msg.src)
+            return
+        self.metrics.ingest(payload)

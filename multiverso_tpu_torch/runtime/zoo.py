@@ -10,7 +10,9 @@ wakes every rank blocked on a failed sibling). Start order mirrors the
 reference
 (ref: src/zoo.cpp:73-102): controller, communicator, register with the
 controller to learn the rank→worker_id/server_id map, then server and
-worker actors, then a barrier. With ``-ma=true`` (model-average mode)
+worker actors (the BSP ``SyncServer`` under ``-sync``), then a barrier;
+with ``-metrics_interval_s`` each rank then starts its metrics reporter
+(``runtime/metrics.py``). With ``-ma=true`` (model-average mode)
 the zoo starts no parameter server at all: no actors, no registration,
 no barrier; the ranks meet only in the fabric's collectives
 (``mv.aggregate``, ``parallel/ma.py``).
@@ -47,11 +49,11 @@ from .worker import Worker
 
 define_string("ps_role", "default", "none / worker / server / default(all)")
 define_bool("ma", False, "model-average mode: skip the parameter server")
+define_bool("sync", False, "BSP sync server")
 # Flags of reference features that are not ported yet. Defined here (with
 # the reference's defaults) so that they parse; a non-default value
 # raises in Zoo.start.
 define_string("machine_file", "", "TCP mesh machine file (not ported)")
-define_bool("sync", False, "BSP sync server")
 define_bool("rejoin", False, "restarted rank rejoining a live cluster")
 define_int("rpc_retry_max", 0, "retries of a Get/Add after a lost peer")
 define_double("rpc_timeout_s", 0.0, "diagnostic table request timeout")
@@ -62,8 +64,6 @@ define_int("replica_hot_rows", 0, "hot-row read replication")
 define_bool("reshard_auto", False, "automatic elastic resharding")
 define_int("shard_initial_servers", 0, "servers owning rows at creation")
 define_int("serving_port", 0, "online serving frontend port")
-define_double("metrics_interval_s", 0.0, "metrics export period")
-define_int("metrics_port", 0, "controller metrics scrape port")
 define_double("autotune_interval_s", 0.0, "closed-loop autotune period")
 define_int("max_get_staleness", 0, "worker row cache staleness bound")
 define_bool("one_bit_push", False, "1-bit quantized matrix pushes")
@@ -71,7 +71,6 @@ define_bool("one_bit_push", False, "1-bit quantized matrix pushes")
 #: flag -> (ROADMAP item, the reference feature it selects)
 UNPORTED_FLAGS: Dict[str, tuple] = {
     "machine_file": ("A9", "the multi-process TCP transport"),
-    "sync": ("A5", "the BSP sync server"),
     "rejoin": ("A9", "rank rejoin (fault tolerance)"),
     "rpc_retry_max": ("A9", "peer-loss retries (fault tolerance)"),
     "rpc_timeout_s": ("A9", "request timeouts (fault tolerance)"),
@@ -82,8 +81,8 @@ UNPORTED_FLAGS: Dict[str, tuple] = {
     "reshard_auto": ("A9", "elastic resharding"),
     "shard_initial_servers": ("A9", "elastic resharding"),
     "serving_port": ("A12", "the serving tier"),
-    "metrics_interval_s": ("A5", "metrics export"),
-    "metrics_port": ("A5", "metrics export"),
+    "metrics_port": ("A12", "the metrics scrape endpoint "
+                     "(io/metrics_http.py)"),
     "autotune_interval_s": ("A9", "closed-loop autotune"),
     "max_get_staleness": ("A6", "the worker row cache"),
     "one_bit_push": ("A6", "1-bit quantized pushes"),
@@ -93,12 +92,12 @@ UNPORTED_FLAGS: Dict[str, tuple] = {
 
 #: Defaults of UNPORTED_FLAGS (the reference's CANONICAL_FLAGS values).
 _UNPORTED_DEFAULTS = {
-    "machine_file": "", "sync": False, "rejoin": False,
+    "machine_file": "", "rejoin": False,
     "rpc_retry_max": 0, "rpc_timeout_s": 0.0,
     "heartbeat_interval_s": 0.0, "snapshot_dir": "",
     "snapshot_interval_s": 0.0, "replica_hot_rows": 0,
     "reshard_auto": False, "shard_initial_servers": 0, "serving_port": 0,
-    "metrics_interval_s": 0.0, "metrics_port": 0,
+    "metrics_port": 0,
     "autotune_interval_s": 0.0, "max_get_staleness": 0,
     "one_bit_push": False, "chaos_frames": "", "chaos_kill_on": "",
 }
@@ -178,6 +177,7 @@ class Zoo:
         self._role_override: Optional[str] = None
         self._ma = False
         self.device = None
+        self._metrics_reporter = None
 
     # -- lifecycle (ref: src/zoo.cpp:41-60) --
     def start(self, argv: Optional[List[str]] = None,
@@ -200,6 +200,7 @@ class Zoo:
         if not self._ma:
             try:
                 self._start_ps()
+                self._start_observability()
             except BaseException:
                 self._teardown_partial_start()
                 raise
@@ -209,6 +210,7 @@ class Zoo:
         return remaining
 
     def _teardown_partial_start(self) -> None:
+        self._stop_observability()
         for name in (actors.WORKER, actors.SERVER, actors.CONTROLLER):
             actor = self._actors.get(name)
             if actor is not None:
@@ -224,6 +226,7 @@ class Zoo:
         """ref: src/zoo.cpp:52-60,104-114."""
         if not self._started:
             return
+        self._stop_observability()
         if self._ma:
             # No actors to stop (the reference's runtime/zoo.py:287): the
             # endpoint is only the collectives'.
@@ -236,10 +239,34 @@ class Zoo:
         self._started = False
         log.debug("Rank %d: multiverso shut down", self.rank)
 
+    def _start_observability(self) -> None:
+        """Metrics export (-metrics_interval_s): this rank's reporter,
+        after registration so that its reports can route. The scrape
+        endpoint (-metrics_port) is ROADMAP A12."""
+        if float(get_flag("metrics_interval_s")) > 0:
+            from .metrics import MetricsReporter
+            self._metrics_reporter = MetricsReporter(self)
+            self._metrics_reporter.start()
+
+    def _stop_observability(self) -> None:
+        if self._metrics_reporter is not None:
+            self._metrics_reporter.stop()
+            self._metrics_reporter = None
+
+    def metrics_flush(self) -> None:
+        """One immediate metrics report from this rank (a deterministic
+        final cut before reading the controller's view: pair it with a
+        barrier); no-op when the reporter is off."""
+        if self._metrics_reporter is not None:
+            self._metrics_reporter.flush()
+
     def _stop_ps(self, finalize_net: bool) -> None:
-        # After an abort the barrier would block on peers that are gone;
-        # tear the actors down directly.
+        # After an abort the graceful drain (finish_train + barrier)
+        # would block on peers that are gone; tear the actors down
+        # directly.
         if not self._aborted:
+            if get_flag("sync"):
+                self.finish_train()
             self.barrier()
         # Reverse start order (ref: src/zoo.cpp:104-113); communicator
         # last so in-flight replies still route.
@@ -264,7 +291,7 @@ class Zoo:
         Communicator(self).start()
         self._register_node(role)
         if is_server(role):
-            Server(self).start()
+            Server.get_server(self).start()
         if is_worker(role):
             Worker(self).start()
         self.barrier()
@@ -379,6 +406,16 @@ class Zoo:
         self.send_to(actors.COMMUNICATOR, msg)
         reply = self._pop_control()
         assert reply.type == MsgType.Control_Reply_Barrier
+
+    def finish_train(self) -> None:
+        """Retire this rank's worker from the BSP clocks on every server
+        (``Server_Finish_Train``)."""
+        if self.worker_id < 0:
+            return
+        for server_id in range(self._num_servers):
+            msg = Message(src=self.rank, dst=self.server_rank(server_id),
+                          msg_type=MsgType.Server_Finish_Train)
+            self.send_to(actors.COMMUNICATOR, msg)
 
     # -- table registration (ref: src/zoo.cpp:178-186) --
     def register_worker_table(self, worker_table) -> int:

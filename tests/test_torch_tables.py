@@ -159,10 +159,17 @@ def test_host_requests_fuse_on_the_server():
         tmv.shutdown()
 
 
-@pytest.mark.parametrize("argv", [["-sync=true"], ["-machine_file=m.txt"],
+@pytest.mark.parametrize("argv", [["-serving_port=1"], ["-machine_file=m.txt"],
                                   ["-snapshot_interval_s=1"],
                                   ["-ps_role=worker"],
                                   ["-max_get_staleness=4"]])
 def test_unported_flags_raise(argv):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tmv.init(argv, device="cpu")
+
+
+def test_metrics_port_names_its_roadmap_item():
+    # -metrics_interval_s is ported (runtime/metrics.py); the scrape
+    # endpoint behind -metrics_port is ROADMAP A12.
+    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
+        tmv.init(["-metrics_port=1"], device="cpu")
