@@ -111,7 +111,7 @@ Phases, each fatal on failure:
    CPU in six model families (losses, correct counts and weights at
    rtol 1e-4 / atol 1e-6); and the CLI
    ``python -m multiverso_tpu_torch.models.logreg.main <config>``, train
-   + test on a 50,000-sample libsvm file;
+   + test on a 20,000-sample libsvm file;
 10. the table data plane, as the reference's table benchmark drives it
    (``bench.py`` ``matrix_bandwidth``: 1,000,000 x 50 float32 tables,
    every 10th row dirty, 100,000 a round padded to 131,072 ids): K13
@@ -202,7 +202,30 @@ Phases, each fatal on failure:
    workers: ``-backup_worker_ratio=50``, worker 1 retires
    (``finish_train``) after 3 rounds, worker 0 makes all 10, the table
    holds the sum of every add bit for bit, and the controller's
-   ``ClusterMetrics`` counts both ranks' ``SERVER_PROCESS_ADD``.
+   ``ClusterMetrics`` counts both ranks' ``SERVER_PROCESS_ADD``;
+14. the client cache, prefetch and 1-bit pushes (ROADMAP A6):
+   ``tbl_cache``, the reference bench's ``run_client_cache``
+   (``bench.py:2052``: a 32,768 x 64 table, Zipf(1.0) Gets of 256
+   draws unique'd, a pool of 80 over 3 passes, 64 hot rows added every
+   24 Gets with their recovery prefetch, ``-max_get_staleness=24``):
+   the uncached and cached arms (Gets/s, hit and row hit rates) and the
+   trainer-shaped loop (60 steps of 2 ms, a Get's stall without and
+   with prefetch), K2 and K3 against their plain versions at its
+   server's shapes and launched in the cached stream, every Get the
+   same bytes in both arms, and the cached arm replayed with each
+   prefetch waited on the card and on the CPU: every Get and the hit,
+   miss, join and prefetch counts the same; ``hb_ps_host_sgns``,
+   ``PSWord2Vec``'s host-buffer arm at phase 8's ``hb_ps_sgns``
+   settings with ``-max_get_staleness=8`` and prefetch on (K2 as its
+   server gathers the real rows, K9, K3 into the delta buffers and as
+   its server adds the host deltas; 2 warm-up and 4 counted batches,
+   profiled; a Get's stall a batch without and with prefetch) and
+   ``hb_ps_host_1bit``, the same with ``-one_bit_push=true`` (the first
+   push's blobs and residual the CPU's encode and the rows after it the
+   plain K3's add of the CPU's decode, bit for bit; the encode's host
+   ms a batch; the process's peak RSS); then the topic corpus on the
+   host-buffer arm, cache off: its tables the device arm's bit for bit
+   on the card and on the CPU, and card against CPU.
 
 Phases 1-6 are as the second slice left them, the small-input checks
 now also comparing example counts, and K2 and K3 timed over all the
@@ -212,8 +235,8 @@ Huffman tree of the bench dictionary serves every HS model of the run.
 Prints one JSON ``kernels`` line (one entry a path and kernel: ``ps``,
 ``local_<mode>``, ``ps_<mode>``, ``hb_local_<mode>``, ``hb_ps_<mode>``,
 ``lr_<path>``, ``tbl_<path>``, ``ps_<n>srv[_seg]``, ``ma_mesh4``,
-``ma_sgd4``, ``ps_bsp2`` or ``tbl_bsp_<rule>``, with that path's
-launches), the card's name and
+``ma_sgd4``, ``ps_bsp2``, ``tbl_bsp_<rule>``, ``tbl_cache`` or
+``hb_ps_host_<sgns|1bit>``, with that path's launches), the card's name and
 power limit, and
 as its last line ``{"ok": true, "device": {...}}``. Exits non-zero with
 no result when CUDA is not available or the package is missing.
@@ -223,8 +246,8 @@ Usage: ``python3 chip_smoke.py`` (one card). ``--profile DIR`` adds a
 device's busy share and the host monitors) and keeps the Chrome trace
 of every counted path. ``--multiserver-only`` builds the kernels and
 runs phase 11 alone (its ``kernels`` line and the card's line, no
-result line), ``--ma-only`` phase 12, ``--bsp-only`` phase 13 and
-``--logreg-only`` phase 9 alike; ``--step-kernels-only [NAMES]``
+result line), ``--ma-only`` phase 12, ``--bsp-only`` phase 13,
+``--cache-only`` phase 14 and ``--logreg-only`` phase 9 alike; ``--step-kernels-only [NAMES]``
 holds and times the word2vec step kernels K4-K8 alone at every path's
 shape (``step_result``; K8 also in its in-place form and the PS
 per-pair block step), K12 with K20 at ``lr_sparse_local``'s and K19
@@ -235,7 +258,7 @@ runs, no result line; NAMES keeps the kernels named, e.g.
 ``pairlist_ns_grad`` K9's forms beside the host-batch paths'; these,
 ``mesh_allreduce`` and ``sparse_lr_apply`` build no corpus).
 ``--cpu-rehearsal`` runs
-phases 2 and 4-13 at a tiny size
+phases 2 and 4-14 at a tiny size
 on the CPU with the plain versions (no kernels, no timing, no result
 line, exit code 3) to check the control flow on a host without a card.
 """
@@ -262,6 +285,10 @@ PEAK_FP32_FLOPS = 67e12
 DIM, WINDOW, NEG, NEG_BLOCK, CENTERS = 128, 5, 5, 8, 32768
 BLOCKS = 8
 REPS = 20
+# The word2vec step kernels' plain versions take milliseconds a call and
+# launch thousands of small kernels (K4's forms XLA's summation order,
+# ROADMAP C2): 3 traced calls time them (20 would trace ~10^5 launches).
+PLAIN_REPS = 3
 PS_KERNELS = ("subsample_compact", "row_gather", "row_scatter_add",
               "banded_sgns_grad")
 
@@ -1386,7 +1413,8 @@ def step_result(torch, kernel, plain, args, n_bytes: float, flops: float,
         ok=ok and bits,
         source=source, replaces=replaces,
         ms=sum(ms for _, ms in split),
-        plain_ms=time_ms(torch, lambda: plain(*args)), library_ms=None,
+        plain_ms=time_ms(torch, lambda: plain(*args), PLAIN_REPS),
+        library_ms=None,
         bound=bound(n_bytes, flops))
     log(f"[kernel {name} @ {path}] bound from {n_bytes / 1e6:.1f} MB, "
         f"{flops / 1e9:.2f} GFLOP")
@@ -2049,7 +2077,7 @@ def run_hostbatch_phase(torch, np, mv, device, dictionary, tokenized,
 # numeric and 26 categorical fields, binary labels).
 LR_FEATURES, LR_NUMERIC, LR_CATEGORICAL = 1_000_000, 13, 26
 LR_BATCH, LR_WARM, LR_COUNTED = 4096, 4, 64
-LR_CLI_SAMPLES = 50_000
+LR_CLI_SAMPLES = 20_000  # the CLI's file: small, for the script's time limit
 _LR_REF = "multiverso_tpu/models/logreg/"
 _LR_SRC = _CSRC + "sparse_logreg.cu"
 # (path, config, model family): the reference's defaults otherwise
@@ -3843,7 +3871,8 @@ def ms_step_kernel(torch, trainer, table_in, table_out):
         f"loss rel err {loss_rel:.2g} <= 1e-5; counts equal",
         max_abs_err=err, ok=ok, source=_CSRC + "banded_sgns.cu",
         replaces=_REF + "729", ms=time_ms(torch, lambda: kernel(*args)),
-        plain_ms=time_ms(torch, lambda: plain(*args)), library_ms=None,
+        plain_ms=time_ms(torch, lambda: plain(*args), PLAIN_REPS),
+        library_ms=None,
         bound=bound(n_bytes, flops))
 
 
@@ -5070,6 +5099,463 @@ def lr_apply_case(torch, np, device):
                    batch, gen, device, ps=False)
 
 
+
+# -- phase 14: the client cache, prefetch and 1-bit pushes (A6) --
+
+# bench.py:2052 run_client_cache: table rows and width, rows a Get (before
+# unique), the pool of Gets and its passes, the hot rows' add period and
+# the staleness bound (versions are per shard: the bound covers the adds
+# between two visits of a pool Get), the trainer-shaped steps and their
+# simulated 2 ms of compute.
+CACHE_ROWS, CACHE_COL, CACHE_PER_GET = 1 << 15, 64, 256
+CACHE_POOL, CACHE_PASSES, CACHE_HOT_EVERY, CACHE_BOUND = 80, 3, 24, 24
+CACHE_STEPS, CACHE_STEP_S = 60, 0.002
+# The host-buffer arm's bound (tests/test_client_cache.py:342).
+HOST_ARM_BOUND = 8
+HOST_ARM_PATHS = (("hb_ps_host_sgns", False), ("hb_ps_host_1bit", True))
+
+
+def cache_workload(np, scale_down: int):
+    """bench.py's Gets: Zipf(1.0) rows of a 32,768-row table, unique'd
+    draws of 256, a pool of 80 repeated over 3 passes, and the hot rows
+    (the first 256's draws of 64) its adds touch."""
+    rng = np.random.default_rng(11)
+    num_row = CACHE_ROWS // scale_down
+    probs = 1.0 / np.arange(1, num_row + 1)
+    probs /= probs.sum()
+    per = max(CACHE_PER_GET // scale_down, 8)
+    batches = [np.unique(rng.choice(num_row, size=per, p=probs))
+               .astype(np.int32) for _ in range(CACHE_POOL)]
+    hot = np.unique(rng.choice(min(256, num_row), size=64)) \
+        .astype(np.int32)
+    return num_row, batches, batches * CACHE_PASSES, hot
+
+
+def cache_counts():
+    from multiverso_tpu_torch.tables import client_cache
+    from multiverso_tpu_torch.util.dashboard import Dashboard
+    return {n: Dashboard.get(n).count for n in (
+        client_cache.HIT, client_cache.MISS, client_cache.JOIN,
+        client_cache.PREFETCH, "SERVER_PROCESS_GET")}
+
+
+def cache_arm(torch, np, mv, device, work, cached: bool, replay: bool):
+    """One arm of bench.py's client-cache phase under its own zoo: a
+    table of ``work``'s rows (batch 0's rows set to 1), a warm pass of
+    the pool, the timed stream of Gets (each 24th followed by an add of
+    ones to the hot rows and their recovery prefetch), then the
+    trainer-shaped loop (prefetch step i+1 when cached, 2 ms, Get step
+    i). ``replay`` waits each prefetch before the next call, so the
+    hit, miss and join counts do not depend on when its reply lands.
+    Returns the timed stream's seconds, the Gets (every one, in order),
+    the cache's and the dashboard's counts over the stream, the mean
+    stall of a trainer-shaped Get, and the launches of the stream."""
+    from multiverso_tpu_torch import kernels
+    from multiverso_tpu_torch.util import configure
+    num_row, batches, stream, hot = work
+    cuda = device.type == "cuda"
+    argv = [f"-max_get_staleness={CACHE_BOUND}"] if cached else []
+    mv.init(argv, device=None if cuda else "cpu")
+    try:
+        table = mv.create_matrix_table(num_row, CACHE_COL)
+        ones = np.ones((hot.size, CACHE_COL), np.float32)
+        table.add_rows(batches[0], np.ones((batches[0].size, CACHE_COL),
+                                           np.float32))
+        gets = [table.get_rows(ids) for ids in batches]   # warm
+        cache = table._row_cache
+        stats0, counts0 = dict(cache.stats), cache_counts()
+        if cuda:
+            torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        for i, ids in enumerate(stream):
+            gets.append(table.get_rows(ids))
+            if i % CACHE_HOT_EVERY == CACHE_HOT_EVERY - 1:
+                table.add_rows(hot, ones)
+                mid = table.prefetch_rows_async(hot)
+                if replay:
+                    table.wait(mid)
+        elapsed = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+        stats, counts = dict(cache.stats), cache_counts()
+        stall = 0.0
+        steps = min(CACHE_STEPS, len(stream))
+        for i in range(steps):
+            if cached and i + 1 < steps:
+                mid = table.prefetch_rows_async(stream[i + 1])
+                if replay:
+                    table.wait(mid)
+            time.sleep(CACHE_STEP_S)
+            t0 = time.perf_counter()
+            gets.append(table.get_rows(stream[i]))
+            stall += time.perf_counter() - t0
+        final = cache_counts()
+    finally:
+        mv.shutdown()
+        configure.reset_flags()
+    return dict(
+        seconds=elapsed, gets=gets, stall_ms=stall / steps * 1e3,
+        launches=launches,
+        stream={k: stats[k] - stats0[k] for k in (
+            "hits", "misses", "rows_hit", "rows_missed")},
+        counts={k: counts[k] - counts0[k] for k in counts},
+        all_counts={k: final[k] - counts0[k] for k in final})
+
+
+def cache_kernel_checks(torch, device, work, card: str):
+    """K2 and K3 where the cached table's server runs them: K2 gathers a
+    missed Get's rows (pool Gets 0-2 in turn, bucket-padded as the
+    server pads host ids), K3 adds the hot rows' ones (ascending ids:
+    the one-writer form; the server's bucket padding, which drops, left
+    off so that ``index_add_`` can take the same ids) — on a random
+    table of the server's storage shape (64 columns stored in 128)."""
+    from multiverso_tpu_torch.updater.engine import pad_ids
+    num_row, batches, _, hot = work
+    table = random_tables(torch, device, [(num_row, 128)])[0]
+    gets = tuple((table, torch.from_numpy(pad_ids(ids, num_row))
+                  .to(device)) for ids in batches[:4])
+    ids = torch.from_numpy(hot).to(device)
+    delta = torch.zeros((hot.size, 128), device=device)
+    delta[:, :CACHE_COL] = 1.0
+    return report([check_gather(torch, gets[:1], CACHE_COL,
+                                rotate=[gets[1:2], gets[2:3]]),
+                   check_scatter(torch, ((table, ids, delta),), CACHE_COL,
+                                 distinct=True)], card, "tbl_cache")
+
+
+def digest_all(np, gets):
+    """One digest a Get: its bytes, so two runs' Gets compare exactly."""
+    import hashlib
+    return [hashlib.sha1(np.ascontiguousarray(g).tobytes()).hexdigest()
+            for g in gets]
+
+
+def cache_path(torch, np, mv, device, card: str, scale_down: int):
+    """``tbl_cache``: bench.py's ``run_client_cache`` on the card — the
+    uncached and the cached arm (Gets/s of the timed stream, the hit
+    rate of its Gets and rows, a trainer-shaped Get's stall without and
+    with prefetch), K2 and K3 checked at its server's shapes and
+    launched in the cached arm's stream; then the cached arm again on
+    the card and on the CPU with each prefetch waited: every Get the
+    same bytes, and the same hit, miss, join and prefetch counts; the
+    timed arm's Gets the same bytes too."""
+    work = cache_workload(np, scale_down)
+    cuda = device.type == "cuda"
+    results = cache_kernel_checks(torch, device, work, card) if cuda \
+        else []
+    plain = cache_arm(torch, np, mv, device, work, False, False)
+    cached = cache_arm(torch, np, mv, device, work, True, False)
+    n = len(work[2])
+    s = cached["stream"]
+    log(f"[tbl_cache] {card} | {work[0]} x {CACHE_COL}, {n} Gets of ~"
+        f"{np.mean([b.size for b in work[1]]):.0f} rows, bound "
+        f"{CACHE_BOUND} | uncached {n / plain['seconds']:.1f} Gets/s, "
+        f"cached {n / cached['seconds']:.1f} Gets/s "
+        f"({plain['seconds'] / cached['seconds']:.3f}x) | hit rate "
+        f"{s['hits'] / max(s['hits'] + s['misses'], 1):.4f}, row hit rate "
+        f"{s['rows_hit'] / max(s['rows_hit'] + s['rows_missed'], 1):.4f} "
+        f"| stall a step {plain['stall_ms']:.3f} ms without prefetch, "
+        f"{cached['stall_ms']:.3f} ms with "
+        f"({plain['stall_ms'] / max(cached['stall_ms'], 1e-9):.3f}x)")
+    log(f"[tbl_cache] timed stream counts: uncached {plain['counts']}, "
+        f"cached {cached['counts']}; cached arm in all "
+        f"{cached['all_counts']}")
+    log(f"[tbl_cache] kernel launches {cached['launches']}")
+    missing = [k for k in ("row_gather", "row_scatter_add")
+               if cuda and cached["launches"][k] <= 0]
+    if missing:
+        raise AssertionError(f"tbl_cache never launched {missing}")
+    timed = digest_all(np, cached["gets"])
+    if digest_all(np, plain["gets"]) != timed:
+        raise AssertionError("tbl_cache: the cached arm's Gets differ from "
+                             "the uncached arm's")
+    card_replay = cache_arm(torch, np, mv, device, work, True, True)
+    cpu_replay = cache_arm(torch, np, mv, torch.device("cpu"), work, True,
+                           True)
+    same = digest_all(np, card_replay["gets"]) \
+        == digest_all(np, cpu_replay["gets"]) == timed
+    counted = ("counts", "stream", "all_counts")
+    if not same or any(card_replay[k] != cpu_replay[k] for k in counted):
+        raise AssertionError(
+            f"tbl_cache: card and CPU replays differ (Gets equal: {same}; "
+            f"card {[card_replay[k] for k in counted]}, CPU "
+            f"{[cpu_replay[k] for k in counted]})")
+    log(f"[tbl_cache] replay with each prefetch waited: card and CPU "
+        f"alike, {len(timed)} Gets bit for bit (the timed arms' too), "
+        f"counts {cpu_replay['all_counts']}")
+    return results, {"tbl_cache": cached["launches"]}
+
+
+def host_arm_kernel_checks(torch, model, batch, path: str, card: str):
+    """The host-buffer arm's kernels at the first batch's shapes over
+    random tables of the model's: K2 as its server gathers the real
+    unique rows (bucket-padded host ids), K9 and K3 into the pulled
+    buffers' delta (``hb_kernel_case``, as the device arm runs them),
+    and K3 as the server adds the sliced host deltas (ascending ids: the
+    one-writer form; the bucket padding, which drops, left off so that
+    ``index_add_`` can take the same ids)."""
+    from multiverso_tpu_torch.kernels import rows
+    from multiverso_tpu_torch.updater.engine import pad_ids
+    D = model.config.embedding_size
+    dev = model_device(model)
+    tables = random_tables(torch, dev, model_shapes(model))
+    compact = model.prepare(batch)
+    real = (compact.rows_in, compact.rows_out)
+    pulls = tuple((t, torch.from_numpy(pad_ids(ids, t.shape[0])).to(dev))
+                  for t, ids in zip(tables, real))
+    results = [check_gather(torch, pulls, D)]
+    (kernel, plain, args, bufs, in_rows, out_rows, _, n_bytes,
+     flops) = hb_kernel_case(torch, model, batch, tables, True)
+    got = kernel(*args)
+    err, ok, loss_rel = compare_step(got, plain(*args))
+    results.append(dict(
+        name="pairlist_ns_grad", tol=f"grads |err| <= 1e-5 + 1e-4 |plain|; "
+        f"loss rel err {loss_rel:.2g} <= 1e-5; counts equal",
+        max_abs_err=err, ok=ok, source=_CSRC + "pairlist_ns.cu",
+        replaces=_MODEL_REF + "755",
+        ms=time_ms(torch, lambda: kernel(*args)),
+        plain_ms=time_ms(torch, lambda: plain(*args)), library_ms=None,
+        bound=bound(n_bytes, flops)))
+    scatters = []
+    for t, ids, g, buf, pushed in zip(tables, (in_rows, out_rows), got,
+                                      bufs, real):
+        delta = torch.zeros_like(buf)
+        rows.row_scatter_add(delta, ids, g)
+        scatters.append((t, torch.from_numpy(pushed).to(dev),
+                         delta[:pushed.size].contiguous()))
+    results.append(check_scatter(torch, tuple(scatters), D,
+                                 distinct=True))
+    log(f"[kernel pairlist_ns_grad @ {path}] B={args[4].shape[0]} | "
+        f"pulled {real[0].size} + {real[1].size} real rows into buffers "
+        f"of {tuple(bufs[0].shape)}, {tuple(bufs[1].shape)}")
+    del tables, got, args, bufs, scatters
+    return report(results, card, path)
+
+
+class EncodeTimer:
+    """Wraps each table's ``_onebit_chunk`` (an instance attribute over
+    the method): the host seconds spent encoding, and each table's first
+    call's (rows, chunk, blobs) for the first-push check."""
+
+    def __init__(self, np, tables):
+        self.seconds, self.calls, self.first = 0.0, 0, {}
+        self._np, self._tables = np, tables
+        for t in tables:
+            t._onebit_chunk = self._wrap(t, t._onebit_chunk)
+
+    def _wrap(self, table, encode):
+        np = self._np
+
+        def timed(chunk, lo, hi, rows=None):
+            t0 = time.perf_counter()
+            blobs = encode(chunk, lo, hi, rows)
+            self.seconds += time.perf_counter() - t0
+            self.calls += 1
+            self.first.setdefault(id(table), (
+                None if rows is None else rows.copy(),
+                np.array(chunk, copy=True),
+                [b.as_array(np.uint8).copy() for b in blobs]))
+            return blobs
+        return timed
+
+    def remove(self):
+        for t in self._tables:
+            del t._onebit_chunk
+
+
+def onebit_first_push(torch, np, model, batch) -> str:
+    """``hb_ps_host_1bit``'s first push, held on the CPU: each table's
+    encoded blobs and the worker's residual are the CPU's encode of the
+    same host delta, bit for bit, and the rows after the push are the
+    rows before it plus the CPU's decode of those blobs, added by the
+    plain K3, bit for bit."""
+    from multiverso_tpu_torch.kernels import rows
+    from multiverso_tpu_torch.tables import matrix_table as mt
+    compact = model.prepare(batch)
+    tables = (model._in_table, model._out_table)
+    ids = (compact.rows_in, compact.rows_out)
+    before = [t.get_rows(i).copy() for t, i in zip(tables, ids)]
+    timer = EncodeTimer(np, tables)
+    try:
+        model.train_batch(compact)
+    finally:
+        timer.remove()
+    D = model.config.embedding_size
+    for t, i, old in zip(tables, ids, before):
+        rows_c, chunk, blobs = timer.first[id(t)]
+        chunk2d = np.asarray(chunk).reshape(-1, D)
+        want_blobs, residual = mt._onebit_blobs(
+            (chunk2d + np.zeros_like(chunk2d)).reshape(-1))
+        if not (np.array_equal(rows_c, i) and all(
+                w.as_array(np.uint8).tobytes() == g.tobytes()
+                for w, g in zip(want_blobs, blobs))
+                and t._residual[i].tobytes()
+                == residual.reshape(-1, D).tobytes()):
+            raise AssertionError("hb_ps_host_1bit: the first push's blobs "
+                                 "or residual differ from the CPU's")
+        decoded = mt._onebit_decode(*want_blobs).reshape(-1, D)
+        want = torch.from_numpy(old.copy())
+        rows.row_scatter_add_plain(
+            want, torch.arange(i.size, dtype=torch.int32),
+            torch.from_numpy(decoded), 1.0)
+        after = t.get_rows(i)
+        if after.tobytes() != want.numpy().tobytes():
+            raise AssertionError("hb_ps_host_1bit: the table after the "
+                                 "first push is not the CPU's decode "
+                                 "added by the plain K3")
+    return (f"first push: blobs and residual the CPU's encode, rows "
+            f"{ids[0].size} in + {ids[1].size} out the plain K3's add of "
+            f"the CPU's decode, bit for bit")
+
+
+def small_host_arm(torch, mv, device, workdir: str, host: bool,
+                   one_bit: bool = False):
+    """The topic corpus, 8 batches of 128 (phase 8's PS small run) on
+    ``PSWord2Vec``'s host-buffer arm (``host``) or its device arm, cache
+    off: (loss, pairs, input rows, output rows)."""
+    from multiverso_tpu_torch.models.wordembedding import (
+        Dictionary, PSWord2Vec, TokenizedCorpus, Word2VecConfig)
+    from multiverso_tpu_torch.util import configure
+    path = write_topics(workdir)
+    dictionary = Dictionary.build(path, min_count=1)
+    tokenized = TokenizedCorpus.build(dictionary, path)
+    config = Word2VecConfig(embedding_size=16, window=3, negative=5,
+                            epochs=2, min_count=1, sample=1e-2,
+                            batch_size=128, use_ps=True, neg_block=4)
+    batches = hb_batches(dictionary, tokenized, 128, 3, False, 8, 1e-2)
+    argv = ["-max_get_staleness=0"] + (["-one_bit_push=true"]
+                                       if one_bit else [])
+    mv.init(argv, device=str(device))
+    try:
+        model = PSWord2Vec(config, dictionary)
+        model._device_path = not host
+        loss, pairs = model.train_batches(iter(batches))
+        return (loss, pairs, model._in_table.get(), model._out_table.get())
+    finally:
+        mv.shutdown()
+        configure.reset_flags()
+
+
+def host_arm_path(torch, np, mv, device, dictionary, tokenized, card: str,
+                  workdir: str, profile_dir: str, dim: int,
+                  scale_down: int, path: str, one_bit: bool):
+    """``hb_ps_host_sgns`` / ``hb_ps_host_1bit``: ``PSWord2Vec``'s
+    host-buffer arm at phase 8's ``hb_ps_sgns`` settings (131,072 pairs
+    a batch, neg_block 8, D 128) with ``-max_get_staleness=8`` and
+    prefetch on (``-one_bit_push=true`` too for the second): its kernels
+    checked (K2, K9, K3), the first push held on the CPU (1-bit), 2
+    warm-up batches, the 4 batches without prefetch (a Get's stall a
+    batch), then with it counted (every kernel launched) and profiled,
+    the 1-bit encode's host ms a batch and the process's peak RSS."""
+    from multiverso_tpu_torch.models.wordembedding import (
+        PSWord2Vec, Word2VecConfig)
+    from multiverso_tpu_torch.util import configure
+    from multiverso_tpu_torch.util.dashboard import Dashboard
+    size, nb, n = HB_PS
+    size //= scale_down
+    cuda = device.type == "cuda"
+    batches = hb_batches(dictionary, tokenized, size, WINDOW, False,
+                         n + 2)
+    config = Word2VecConfig(embedding_size=dim, window=WINDOW,
+                            negative=NEG, epochs=3, min_count=1,
+                            sample=1e-3, batch_size=size, neg_block=nb,
+                            use_ps=True)
+    argv = [f"-max_get_staleness={HOST_ARM_BOUND}"] + (
+        ["-one_bit_push=true"] if one_bit else [])
+    mv.init(argv, device=None if cuda else "cpu")
+    results, timer = [], None
+    try:
+        model = PSWord2Vec(config, dictionary)
+        model._device_path = False
+        model._use_prefetch = True
+        if cuda:
+            results = host_arm_kernel_checks(torch, model, batches[0],
+                                             path, card)
+        if one_bit:
+            log(f"[{path}] {onebit_first_push(torch, np, model, batches[0])}")
+            model.train_batches(iter(batches[1:2]))    # warm-up
+        else:
+            model.train_batches(iter(batches[:2]))     # warm-up
+        counted = batches[2:]
+        # A Get's stall a batch without prefetch (cache on), then the
+        # counted run with it (its profiled repeat too).
+        model._use_prefetch = False
+        Dashboard.reset()
+        model.train_batches(iter(counted))
+        stall_off = Dashboard.get("PS_GET_STALL")
+        stall_off = stall_off.elapse / max(stall_off.count, 1)
+        model._use_prefetch = True
+        if one_bit:
+            timer = EncodeTimer(np, (model._in_table, model._out_table))
+        counts = {path: drive_counted(
+            torch, model, path, ("row_gather", "pairlist_ns_grad",
+                                 "row_scatter_add"), card, workdir,
+            profile_dir, lambda: model.train_batches(iter(counted)),
+            len(counted), "batch")}
+        stall_on = Dashboard.get("PS_GET_STALL")
+        stall_on = stall_on.elapse / max(stall_on.count, 1)
+        log(f"[{path}] {card} | a Get's stall a batch: {stall_off:.3f} ms "
+            f"without prefetch, {stall_on:.3f} ms with "
+            f"({stall_off / max(stall_on, 1e-9):.3f}x)")
+        for name, table in (("in", model._in_table),
+                            ("out", model._out_table)):
+            st = table._row_cache.stats
+            log(f"[{path}] {name} table's cache over the whole path: "
+                f"{st['hits']} Gets hit, {st['misses']} missed; rows "
+                f"{st['rows_hit']} hit, {st['rows_missed']} missed "
+                f"({st['row_hit_rate']:.4f}); {st['rows']} cached")
+        if timer is not None:
+            # One chunk a table a batch (one server).
+            log(f"[{path}] 1-bit encode: {timer.calls} chunks, "
+                f"{timer.seconds / (timer.calls / 2) * 1e3:.2f} host ms a "
+                f"batch (both tables)")
+        check_tables(np, model, path)
+        residuals = sum(t._residual.nbytes for t in (
+            model._in_table, model._out_table) if t._residual is not None)
+        log(f"[{path}] peak host memory {host_peak_gib():.2f} GiB (the "
+            f"1-bit residuals: {residuals / 1e9:.2f} GB)")
+    finally:
+        if timer is not None:
+            timer.remove()
+        mv.shutdown()
+        configure.reset_flags()
+    return results, counts
+
+
+def run_cache_phase(torch, np, mv, device, dictionary, tokenized,
+                    card: str, workdir: str, profile_dir: str, dim: int,
+                    scale_down: int):
+    """Phase 14: the client cache, prefetch and 1-bit pushes (ROADMAP
+    A6) — ``tbl_cache`` (``cache_path``) and the host-buffer arm's two
+    paths (``host_arm_path``), then the topic corpus on the host-buffer
+    arm with the cache off: its tables the device arm's bit for bit, on
+    the card and on the CPU, and card against CPU as phase 8. Returns
+    (kernel results, launch counts per path)."""
+    results, counts = cache_path(torch, np, mv, device, card, scale_down)
+    for path, one_bit in HOST_ARM_PATHS:
+        r, c = host_arm_path(torch, np, mv, device, dictionary, tokenized,
+                             card, workdir, profile_dir, dim, scale_down,
+                             path, one_bit)
+        results += r
+        counts.update(c)
+        free(torch, device)
+    runs = {}
+    for dev in (device, torch.device("cpu")):
+        host = small_host_arm(torch, mv, dev, workdir, True)
+        arm = small_host_arm(torch, mv, dev, workdir, False)
+        if host[:2] != arm[:2] or any(
+                h.tobytes() != a.tobytes() for h, a in zip(host[2:],
+                                                           arm[2:])):
+            raise AssertionError(f"host-buffer arm on {dev}: tables differ "
+                                 f"from the device arm's")
+        runs[dev.type] = host
+    log("[hb_ps_host] topic corpus, cache off: the host-buffer arm's "
+        "tables the device arm's bit for bit, on the card and on the CPU")
+    compare_small(np, "hb_ps_host, 8 batches", runs[device.type],
+                  runs["cpu"])
+    return results, counts
+
+
 def kernels_line(results, counts):
     """One entry a (path, kernel): the check at that path's shapes and
     the launches of that path's own counted run."""
@@ -5100,6 +5586,10 @@ def main(argv=None) -> int:
                         help="build, then run phase 13 (the BSP sync "
                              "server) alone on the bench corpus (no "
                              "result line)")
+    parser.add_argument("--cache-only", action="store_true",
+                        help="build, then run phase 14 (the client "
+                             "cache, prefetch and 1-bit pushes) alone on "
+                             "the bench corpus (no result line)")
     parser.add_argument("--logreg-only", action="store_true",
                         help="build, then run phase 9 (logistic "
                              "regression) alone (no result line)")
@@ -5167,11 +5657,13 @@ def main(argv=None) -> int:
             print(json.dumps(kernels_line(results, counts)), flush=True)
             print(card, flush=True)
             return 3 if rehearsal else 0
-        if args.multiserver_only or args.ma_only or args.bsp_only:
+        if args.multiserver_only or args.ma_only or args.bsp_only \
+                or args.cache_only:
             dictionary, tokenized = bench_corpus(
                 workdir, sentences or synthetic.SENTENCES)
             phase = run_ma_phase if args.ma_only else run_bsp_phase \
-                if args.bsp_only else run_multiserver_phase
+                if args.bsp_only else run_cache_phase if args.cache_only \
+                else run_multiserver_phase
             results, counts = phase(
                 torch, np, mv, device, dictionary, tokenized, card, workdir,
                 args.profile, dim, 64 if rehearsal else 1)
@@ -5231,7 +5723,8 @@ def main(argv=None) -> int:
                                           rehearsal),
                   lambda: run_multiserver_phase(torch, np, mv, *common),
                   lambda: run_ma_phase(torch, np, mv, *common),
-                  lambda: run_bsp_phase(torch, np, mv, *common))
+                  lambda: run_bsp_phase(torch, np, mv, *common),
+                  lambda: run_cache_phase(torch, np, mv, *common))
         for number, phase in enumerate(phases, 6):
             t0 = time.perf_counter()
             phase_results, phase_counts = phase()

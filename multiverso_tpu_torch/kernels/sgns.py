@@ -32,8 +32,9 @@ import torch
 from . import build
 from ._launch import SMEM_LIMIT, is_plain, require, round_up, stream_of
 from .flush import flush as f
-from .objective import (MAX_EXP, band_sum, dot, masked_grad, offsets,
-                        sum_terms, xent)
+from .flush import fma
+from .objective import (band_sum, band_sum_fused, eigen_dot, fma_sum,
+                        gemv_dot, offsets, row_sum, sgns_loss, sgns_xent)
 
 
 def span_smem(S: int, W: int, K: int, B: int, D: int, warps: int) -> int:
@@ -72,9 +73,19 @@ def span_geometry(C: int, W: int, K: int, B: int, D: int):
 
 def banded_sgns_grad_plain(v: torch.Tensor, u: torch.Tensor,
                            pmask: torch.Tensor, W: int, K: int, B: int,
-                           scale: float):
+                           scale: float, fused_band: bool = False):
     """Plain version of K4: (d_v, d_u, loss, pairs), every operation
-    flushed (``objective``'s note)."""
+    flushed (``objective``'s note), formed in the order of the
+    reference's compiled block step (ROADMAP C2): the logits' sums as
+    XLA's reduce (``row_sum``) and, for the negatives, its GEMV
+    (``gemv_dot``, B = 1) or Eigen's contraction (``eigen_dot``); each
+    cotangent and loss term as ``sgns_xent``, the loss summed as
+    ``sgns_loss``; ``g_v`` from the negatives' fused sum over K, then
+    each offset's product fused in from the last; ``g_neg`` a fused sum
+    over the block's B centers (their product at B = 1).
+    ``fused_band`` forms the band rows as ``_banded_sgns_loss_and_grads``'
+    own program does at rows wider than 8 floats (``band_sum_fused``);
+    the block step sums them as ``band_sum``."""
     C, D = v.shape
     nb = C // B
     offs = offsets(W)
@@ -82,23 +93,31 @@ def banded_sgns_grad_plain(v: torch.Tensor, u: torch.Tensor,
     u_band = u[:C + 2 * W]
     u_neg = u[C + 2 * W:].reshape(nb, K, D)
     nvalid = pmask.sum(dim=1)
-    pos_raw = torch.stack(
-        [dot(v, u_band[W + off:W + off + C], -1) for off in offs], dim=1)
+    pos_raw = row_sum(f(v[:, None] * torch.stack(
+        [u_band[W + off:W + off + C] for off in offs], dim=1)))
     vb = v.reshape(nb, B, D)
-    neg_raw = dot(vb[:, :, None], u_neg[:, None], -1)
-    pos = torch.clamp(pos_raw, -MAX_EXP, MAX_EXP)
-    neg = torch.clamp(neg_raw, -MAX_EXP, MAX_EXP)
-    nw = nvalid.reshape(nb, B, 1)
-    loss = f(f(f(xent(pos, 1.0) * pmask).sum())
-             + f(f(xent(neg, 0.0) * nw).sum()))
-    gpos = masked_grad(pos, pos_raw, 1.0, pmask)
-    gneg = masked_grad(neg, neg_raw, 0.0, nw)
-    g_v = sum_terms(
-        [f(gpos[:, j:j + 1] * u_band[W + off:W + off + C])
-         for j, off in enumerate(offs)]
-        + [dot(gneg[..., None], u_neg[:, None], 2).reshape(C, D)])
-    g_band = band_sum(gpos, v, W)
-    g_neg = dot(gneg[..., None], vb[:, :, None], 1).reshape(nb * K, D)
+    neg_dot = gemv_dot if B == 1 else eigen_dot
+    neg_raw = neg_dot(vb[:, :, None], u_neg[:, None])
+    # Both logits' cotangents and terms in one pass (label 1, then 0).
+    n_pos = pos_raw.numel()
+    cot, terms = sgns_xent(
+        torch.cat([pos_raw.reshape(-1), neg_raw.reshape(-1)]),
+        torch.cat([pmask.reshape(-1),
+                   nvalid.reshape(nb, B, 1).expand(nb, B, K).reshape(-1)]),
+        torch.cat([torch.ones_like(pos_raw.reshape(-1)),
+                   torch.zeros_like(neg_raw.reshape(-1))]))
+    gpos, gneg = cot[:n_pos].reshape(C, -1), cot[n_pos:].reshape(nb, B, K)
+    loss = sgns_loss(terms[:n_pos].reshape(C, -1),
+                     terms[n_pos:].reshape(nb, B, K), pmask, nvalid)
+    g_v = fma_sum(gneg[..., None], u_neg[:, None], 2).reshape(C, D)
+    for j in reversed(range(2 * W)):
+        g_v = fma(gpos[:, j:j + 1].expand(C, D),
+                  u_band[W + offs[j]:W + offs[j] + C], g_v)
+    g_band = (band_sum_fused if fused_band and D > 8 else band_sum)(
+        gpos, v, W)
+    # over one center XLA's dot is the product itself
+    g_neg = (f(gneg[..., None] * vb[:, :, None]) if B == 1 else
+             fma_sum(gneg[..., None], vb[:, :, None], 1)).reshape(nb * K, D)
     d_u = f(torch.cat([g_band, g_neg]) * scale)
     return f(g_v * scale), d_u, loss, pmask.sum()
 

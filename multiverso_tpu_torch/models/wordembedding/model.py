@@ -25,11 +25,12 @@ Port of ``multiverso_tpu/models/wordembedding/model.py``:
   ``CompactBatch``: the unique rows it touches and slot maps into them,
   the negatives drawn with numpy), pulls the rows with device replies,
   steps on the pulled buffers and pushes ``-lr/num_workers * grad``.
-
-Not ported yet: the host-buffer arm of ``PSWord2Vec`` for servers in
-another process (ROADMAP A9), which raises ``NotImplementedError``; its
-client-cache prefetch (A6) needs ``-max_get_staleness``, which the zoo
-refuses.
+  Its host-buffer arm (``_device_path`` False: the arm of a worker whose
+  servers are in another process, or set by a caller) pulls the real
+  unique rows into host buffers, uploads them for the same step and
+  pushes the host deltas, which ``-one_bit_push`` quantizes; with the
+  client cache on (``-max_get_staleness``) ``train_batches`` prefetches
+  batch i+1's rows while batch i steps.
 """
 
 from __future__ import annotations
@@ -43,6 +44,7 @@ from ... import create_kv_table, create_matrix_table
 from ...kernels.pairlist import pairlist_hs_grad, pairlist_ns_grad
 from ...kernels.rows import row_scatter_add
 from ...runtime.zoo import current_zoo, resolve_device
+from ...tables import client_cache
 from ...util.dashboard import monitor
 from .data import CbowBatch
 from .dictionary import Dictionary
@@ -481,9 +483,10 @@ class Word2Vec:
 
 class _Prep:
     """One batch's prepared pull: the CompactBatch plus the in-flight
-    async Get requests."""
+    async Get requests and, on the host-buffer arm, their destination
+    buffers."""
 
-    __slots__ = ("compact", "mid_in", "mid_out")
+    __slots__ = ("compact", "buf_in", "buf_out", "mid_in", "mid_out")
 
     def __init__(self, **kw):
         for k, v in kw.items():
@@ -507,7 +510,9 @@ class PSWord2Vec(Word2Vec):
     count for the learning-rate schedule rides a KV table, synced every
     ``_WC_SYNC`` blocks (ref: communicator.cpp:251-259). The host-batch
     loop (``train_batches``) pipelines: batch i+1's pull is serviced by
-    the server actors while batch i steps on the card."""
+    the server actors while batch i steps on the card; on the host-buffer
+    arm with the client cache on, batch i+1's rows are also prefetched
+    into the cache while batch i steps."""
 
     _WC_SYNC = 16  # blocks between global word-count syncs
 
@@ -523,6 +528,13 @@ class PSWord2Vec(Word2Vec):
         self._wc_pending = 0.0
         self._batches_done = 0
         self._pending_pushes: List = []
+        # Get prefetch (-max_get_staleness > 0, host-buffer arm only):
+        # while the card computes step i, step i+1's rows are prefetched
+        # into the client cache, so _prepare's pull hits locally or
+        # joins the fetch in flight. The device arm keeps the whole loop
+        # on the card: nothing to hide there.
+        self._use_prefetch = (client_cache.cache_enabled()
+                              and not self._device_path)
 
     def _init_embeddings(self) -> None:
         """No full local matrices: the input table is random-initialized
@@ -573,18 +585,32 @@ class PSWord2Vec(Word2Vec):
     def _prepare(self, batch) -> _Prep:
         compact = batch if isinstance(batch, CompactBatch) \
             else self.prepare(batch)
-        if not self._device_path:
-            raise NotImplementedError(
-                "the host-buffer arm of the host-batch PS step (servers in "
-                "another process) waits for the multi-process runtime "
-                "(ROADMAP A9)")
-        # Device pull of the PADDED row sets (the result is already
-        # step-shaped on the card).
+        if self._device_path:
+            # Device pull of the PADDED row sets (the result is already
+            # step-shaped on the card).
+            return _Prep(
+                compact=compact, buf_in=None, buf_out=None,
+                mid_in=self._in_table.get_rows_device_async(
+                    compact.rows_in_p),
+                mid_out=self._out_table.get_rows_device_async(
+                    compact.rows_out_p))
+        # Host-buffer arm: pull only the REAL unique rows into the head
+        # of the padded buffer (the step's slot maps never reference the
+        # tail and its deltas are sliced off before the push, so the
+        # tail only needs to be finite). Requesting the padded ids would
+        # ship copies of the last row both ways.
+        n_in, n_out = compact.rows_in.size, compact.rows_out.size
+        buf_in = np.empty((compact.rows_in_p.size, self._dim), np.float32)
+        buf_out = np.empty((compact.rows_out_p.size, self._dim),
+                           np.float32)
+        buf_in[n_in:] = 0.0
+        buf_out[n_out:] = 0.0
         return _Prep(
-            compact=compact,
-            mid_in=self._in_table.get_rows_device_async(compact.rows_in_p),
-            mid_out=self._out_table.get_rows_device_async(
-                compact.rows_out_p))
+            compact=compact, buf_in=buf_in, buf_out=buf_out,
+            mid_in=self._in_table.get_rows_async(compact.rows_in,
+                                                 out=buf_in[:n_in]),
+            mid_out=self._out_table.get_rows_async(compact.rows_out,
+                                                   out=buf_out[:n_out]))
 
     # -- phase 2: wait the pull, launch the step (async) --
     def _launch(self, prep: _Prep) -> _Launched:
@@ -595,10 +621,16 @@ class PSWord2Vec(Word2Vec):
         step, ref: communicator.cpp:157-249)."""
         compact = prep.compact
         with monitor("PS_GET_STALL"):
+            # The pull stall: request latency the pipeline did not hide
+            # (cache hits and completed prefetches shorten it).
             self._in_table.wait(prep.mid_in)
             self._out_table.wait(prep.mid_out)
-        old_in = self._in_table.take_device_rows()
-        old_out = self._out_table.take_device_rows()
+        if self._device_path:
+            old_in = self._in_table.take_device_rows()
+            old_out = self._out_table.take_device_rows()
+        else:
+            old_in = torch.from_numpy(prep.buf_in).to(self.device)
+            old_out = torch.from_numpy(prep.buf_out).to(self.device)
         lr_scaled = np.float32(self.learning_rate() / self._num_workers)
         d_in, in_rows, d_out, out_rows, loss = self._step_grads(
             old_in, old_out, *self._compact_args(compact, old_in.device),
@@ -624,16 +656,28 @@ class PSWord2Vec(Word2Vec):
 
     # -- phase 3: push deltas, account words --
     def _finish(self, launched: _Launched) -> torch.Tensor:
-        """Push this batch's deltas (they stay on the card) and return
-        the batch loss as a DEVICE scalar. Padded slots carry exact-zero
-        deltas, so the padded sets' duplicate trailing ids add zeros."""
+        """Push this batch's deltas and return the batch loss as a
+        DEVICE scalar. The device arm pushes from the card: padded slots
+        carry exact-zero deltas, so the padded sets' duplicate trailing
+        ids add zeros. The host-buffer arm pushes the real rows' host
+        deltas (1-bit encoded by the table under ``-one_bit_push``)."""
         compact = launched.prep.compact
+        if self._device_path:
+            push_in, rows_in = launched.delta_in, compact.rows_in_p
+            push_out, rows_out = launched.delta_out, compact.rows_out_p
+        else:
+            push_in = launched.delta_in[:compact.rows_in.size].cpu() \
+                .numpy()
+            rows_in = compact.rows_in
+            push_out = launched.delta_out[:compact.rows_out.size].cpu() \
+                .numpy()
+            rows_out = compact.rows_out
         self._pending_pushes.append(
-            (self._in_table, self._in_table.add_rows_async(
-                compact.rows_in_p, launched.delta_in)))
+            (self._in_table, self._in_table.add_rows_async(rows_in,
+                                                           push_in)))
         self._pending_pushes.append(
-            (self._out_table, self._out_table.add_rows_async(
-                compact.rows_out_p, launched.delta_out)))
+            (self._out_table, self._out_table.add_rows_async(rows_out,
+                                                             push_out)))
         self._account_words(compact.words)
         return launched.loss
 
@@ -652,14 +696,35 @@ class PSWord2Vec(Word2Vec):
     def train_batch_async(self, batch) -> torch.Tensor:
         return torch.tensor(self.train_batch(batch), dtype=torch.float32)
 
+    def _prefetched(self, batches):
+        """Double-buffer adapter: prepare batch i+1 and PREFETCH its row
+        sets into the client cache before yielding batch i, so the real
+        pull in ``_prepare`` overlaps the step instead of serializing
+        behind it."""
+        held = None
+        for batch in batches:
+            compact = batch if isinstance(batch, CompactBatch) \
+                else self.prepare(batch)
+            self._in_table.prefetch_rows_async(compact.rows_in)
+            self._out_table.prefetch_rows_async(compact.rows_out)
+            if held is not None:
+                yield held
+            held = compact
+        if held is not None:
+            yield held
+
     def train_batches(self, iterator) -> Tuple[float, int]:
         """Pipelined loop: batch i+1's row pull is serviced by the server
-        actors while batch i's step runs on the card and its deltas push
+        actors while batch i steps on the card and its deltas push
         (ref overlap: distributed_wordembedding.cpp:203-224). Losses
-        accumulate as device scalars — one host read at the end."""
+        accumulate as device scalars — one host read at the end. With
+        the client cache on, the host-buffer arm also prefetches batch
+        i+1's rows during batch i's step (``_prefetched``)."""
         acc = None
         pairs = 0
         launched: Optional[_Launched] = None
+        if self._use_prefetch:
+            iterator = self._prefetched(iterator)
         for batch in iterator:
             prep = self._prepare(batch)  # async pull in flight
             if launched is not None:

@@ -128,7 +128,11 @@ class Worker(Actor):
     # ref: src/worker.cpp:86-88
     def _process_reply_add(self, msg: Message) -> None:
         table = self._cache[msg.table_id]
-        table.note_version(self._zoo.rank_to_server_id(msg.src),
+        # The piggybacked version lands BEFORE the notify: the adder's
+        # completion callback reads the tracker to resolve its
+        # self-invalidated cache slots (read-your-writes); it also
+        # raises this worker's read-your-writes floor for the shard.
+        table.note_add_ack(self._zoo.rank_to_server_id(msg.src),
                            reply_version(msg))
         error = take_error(msg)
         if error is not None:

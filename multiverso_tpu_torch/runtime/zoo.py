@@ -65,8 +65,6 @@ define_bool("reshard_auto", False, "automatic elastic resharding")
 define_int("shard_initial_servers", 0, "servers owning rows at creation")
 define_int("serving_port", 0, "online serving frontend port")
 define_double("autotune_interval_s", 0.0, "closed-loop autotune period")
-define_int("max_get_staleness", 0, "worker row cache staleness bound")
-define_bool("one_bit_push", False, "1-bit quantized matrix pushes")
 
 #: flag -> (ROADMAP item, the reference feature it selects)
 UNPORTED_FLAGS: Dict[str, tuple] = {
@@ -84,8 +82,6 @@ UNPORTED_FLAGS: Dict[str, tuple] = {
     "metrics_port": ("A12", "the metrics scrape endpoint "
                      "(io/metrics_http.py)"),
     "autotune_interval_s": ("A9", "closed-loop autotune"),
-    "max_get_staleness": ("A6", "the worker row cache"),
-    "one_bit_push": ("A6", "1-bit quantized pushes"),
     "chaos_frames": ("A9", "the chaos harness"),
     "chaos_kill_on": ("A9", "the chaos harness"),
 }
@@ -98,8 +94,7 @@ _UNPORTED_DEFAULTS = {
     "snapshot_interval_s": 0.0, "replica_hot_rows": 0,
     "reshard_auto": False, "shard_initial_servers": 0, "serving_port": 0,
     "metrics_port": 0,
-    "autotune_interval_s": 0.0, "max_get_staleness": 0,
-    "one_bit_push": False, "chaos_frames": "", "chaos_kill_on": "",
+    "autotune_interval_s": 0.0, "chaos_frames": "", "chaos_kill_on": "",
 }
 
 CONTROLLER_RANK = 0

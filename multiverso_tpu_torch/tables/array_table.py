@@ -19,9 +19,10 @@ updated in place by the dense rule (default ``+=``, sgd ``-=``, or a
 stateful rule whose state lives beside it) through the updater engine;
 replies and snapshots are clones of it. A tensor
 delta rides the whole stack without touching the host, and
-``get_device`` returns the table as a tensor on the zoo's device. The
-reference's whole-blob client cache (``prefetch_async``) belongs to
-``-max_get_staleness``, which the zoo refuses (ROADMAP A6).
+``get_device`` returns the table as a tensor on the zoo's device.
+Under ``-max_get_staleness`` a host Get is served from the whole-blob
+client cache (``client_cache.BlobCache``: one entry a server shard, a
+hit needs every shard fresh), which ``prefetch_async`` warms.
 """
 
 from __future__ import annotations
@@ -32,9 +33,12 @@ import numpy as np
 import torch
 
 from ..core.blob import Blob, is_device_array
+from ..core.message import MsgType
 from ..sharding import mesh as meshlib
 from ..updater import AddOption, UpdateEngine, create_rule
 from ..util.log import CHECK
+from . import client_cache
+from .client_cache import BlobCache
 from .table_interface import ServerTable, WorkerTable
 
 _ALL_KEY = np.array([-1], dtype=np.int32)
@@ -62,6 +66,15 @@ class ArrayWorker(WorkerTable):
         # _device_shards names the reply destination.
         self._dest: Optional[np.ndarray] = None
         self._device_shards: Optional[Dict[int, torch.Tensor]] = None
+        # Client cache (-max_get_staleness > 0): whole-blob, one entry a
+        # server shard; device Gets bypass it.
+        bound = client_cache.staleness_bound()
+        self._blob_cache: Optional[BlobCache] = None
+        if bound > 0:
+            self._blob_cache = BlobCache(bound, self._num_server,
+                                         self._version_tracker)
+            self._caches.append(self._blob_cache)
+        self._pf_id: Optional[int] = None  # whole-table prefetch in flight
 
     # -- public API (ref: array_table.cpp:29-66) --
     def get(self, out: Optional[np.ndarray] = None) -> np.ndarray:
@@ -73,7 +86,38 @@ class ArrayWorker(WorkerTable):
             out = np.empty(self.size, self.dtype)
         CHECK(out.size == self.size, "output buffer size mismatch")
         self._dest, self._device_shards = out, None
+        if self._blob_cache is not None:
+            shards = self._blob_cache.fetch_all()
+            if shards is not None:
+                # The uncached reply path's write form (_dest[lo:hi] =
+                # values): reshape(-1) would silently COPY a
+                # non-contiguous buffer and drop the fill.
+                for sid, values in shards.items():
+                    out[self._offsets[sid]:self._offsets[sid + 1]] = \
+                        values
+                return self._local_done()
         return self.get_async_raw(Blob(_ALL_KEY.view(np.uint8)))
+
+    def prefetch_async(self) -> int:
+        """Warm the whole-blob client cache without touching the Get
+        destination registers; identical prefetches in flight dedup to
+        one request. A no-op when the cache is disabled."""
+        if self._blob_cache is None:
+            return self._local_done()
+        if self._pf_id is not None:
+            return self._pf_id  # join the outstanding fetch
+        if self._blob_cache.fresh_all():  # counter-free planning check
+            return self._local_done()
+        msg_id = self._new_request()
+        self._pf_id = msg_id
+        self.add_completion(msg_id, self._on_prefetch_done)
+        self._send_request(MsgType.Request_Get,
+                           [Blob(_ALL_KEY.view(np.uint8))], msg_id)
+        return msg_id
+
+    def _on_prefetch_done(self, msg_id: int) -> None:
+        if self._pf_id == msg_id:
+            self._pf_id = None
 
     def add(self, delta, option: Optional[AddOption] = None) -> None:
         self.wait(self.add_async(delta, option))
@@ -86,9 +130,17 @@ class ArrayWorker(WorkerTable):
                                          dtype=self.dtype).reshape(-1)
         CHECK(int(np.prod(tuple(delta.shape))) == self.size,
               "delta size mismatch")
-        return self.add_async_raw(
+        if self._blob_cache is not None:
+            # Self-invalidation until the ack's version stamp resolves
+            # it (read-your-writes).
+            self._blob_cache.begin_add()
+        mid = self.add_async_raw(
             Blob(_ALL_KEY.view(np.uint8)), Blob(delta.reshape(-1)),
             option.to_blob() if option is not None else None)
+        if self._blob_cache is not None:
+            self.add_completion(
+                mid, lambda _mid: self._blob_cache.finish_add())
+        return mid
 
     # -- partition (ref: array_table.cpp:68-86) --
     def partition(self, blobs, msg_type) -> Dict[int, List[Blob]]:
@@ -122,6 +174,14 @@ class ArrayWorker(WorkerTable):
     # -- reply (ref: array_table.cpp:95-106) --
     def process_reply_get(self, reply_blobs: List[Blob]) -> None:
         server_id = int(reply_blobs[0].as_array(np.int32)[0])
+        if self._reply_msg_id >= 0 and self._reply_msg_id == self._pf_id:
+            # Prefetch reply shard: cache only — the destination
+            # registers belong to whatever real Get is in flight.
+            if self._blob_cache is not None:
+                self._blob_cache.store(
+                    server_id, reply_blobs[1].as_array(self.dtype),
+                    self._reply_version)
+            return
         if self._device_shards is not None:  # device-resident get
             self._device_shards[server_id] = reply_blobs[1].typed(self.dtype)
             return
@@ -132,6 +192,9 @@ class ArrayWorker(WorkerTable):
         lo, hi = self._offsets[server_id], self._offsets[server_id + 1]
         CHECK(values.size == hi - lo, "reply shard size mismatch")
         self._dest[lo:hi] = values
+        if self._blob_cache is not None:
+            # Real Gets refresh the cache too.
+            self._blob_cache.store(server_id, values, self._reply_version)
 
 
 class ArrayServer(ServerTable):

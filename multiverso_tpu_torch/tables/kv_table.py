@@ -10,20 +10,24 @@ table/kv_table.h:18-124), cut to the frozen layout. Semantics preserved:
 
 KV state is host-side: it backs control-plane things like WordEmbedding's
 global word count (ref: Applications/WordEmbedding/src/communicator.cpp:
-251-259). Elastic bucket resharding and the snapshot cache are later
-items of the port.
+251-259). Under ``-max_get_staleness`` a Get is served from the
+snapshot cache (``client_cache.SnapshotCache``: keyed by the exact
+requested keys, versioned a contributing server shard). Elastic bucket
+resharding is a later item of the port.
 """
 
 from __future__ import annotations
 
 import pickle
 import struct
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
 
 from ..core.blob import Blob
 from ..util.log import CHECK
+from . import client_cache
+from .client_cache import SnapshotCache
 from .table_interface import ServerTable, WorkerTable
 
 
@@ -34,11 +38,36 @@ class KVWorker(WorkerTable):
         self.val_dtype = np.dtype(val_dtype)
         self._num_server = self._zoo.num_servers
         self.raw: Dict[int, float] = {}
+        # Client cache (-max_get_staleness > 0): whole-request snapshots
+        # keyed by the exact requested key set, versioned per
+        # contributing server shard.
+        bound = client_cache.staleness_bound()
+        self._snap_cache: Optional[SnapshotCache] = None
+        if bound > 0:
+            self._snap_cache = SnapshotCache(bound, self._version_tracker)
+            self._caches.append(self._snap_cache)
+        self._collect_versions: Optional[Dict[int, int]] = None
 
     def get(self, keys) -> Dict[int, float]:
         """Refresh ``raw`` for the requested keys and return it."""
         keys = np.ascontiguousarray(keys, dtype=self.key_dtype).reshape(-1)
+        if self._snap_cache is not None:
+            sids = np.unique(keys.astype(np.int64) % self._num_server)
+            snap = self._snap_cache.fetch(keys.tobytes(), sids)
+            if snap is not None:
+                self.raw.update(snap)
+                return self.raw
+            # Collect each shard's version stamp as the replies land
+            # (the worker actor's reply context carries them).
+            self._collect_versions = {}
         self.wait(self.get_async_raw(Blob(keys.view(np.uint8))))
+        if self._snap_cache is not None:
+            versions, self._collect_versions = self._collect_versions, None
+            if versions is not None and \
+                    {int(s) for s in sids} <= set(versions):
+                self._snap_cache.store(
+                    keys.tobytes(), versions,
+                    {int(k): self.raw.get(int(k), 0.0) for k in keys})
         return self.raw
 
     def add(self, keys, values) -> None:
@@ -49,8 +78,15 @@ class KVWorker(WorkerTable):
         values = np.ascontiguousarray(values,
                                       dtype=self.val_dtype).reshape(-1)
         CHECK(keys.size == values.size, "keys/values size mismatch")
-        return self.add_async_raw(Blob(keys.view(np.uint8)),
-                                  Blob(values.view(np.uint8)))
+        if self._snap_cache is not None:
+            # Self-invalidation until the ack's version resolves it.
+            self._snap_cache.begin_add()
+        mid = self.add_async_raw(Blob(keys.view(np.uint8)),
+                                 Blob(values.view(np.uint8)))
+        if self._snap_cache is not None:
+            self.add_completion(
+                mid, lambda _mid: self._snap_cache.finish_add())
+        return mid
 
     # ref: kv_table.h:48-65
     def partition(self, blobs, msg_type) -> Dict[int, List[Blob]]:
@@ -80,6 +116,10 @@ class KVWorker(WorkerTable):
         values = reply_blobs[1].as_array(self.val_dtype)
         for k, v in zip(keys, values):
             self.raw[int(k)] = v.item()
+        if (self._collect_versions is not None
+                and self._reply_version >= 0):
+            self._collect_versions[self._reply_server] = \
+                self._reply_version
 
 
 class KVServer(ServerTable):

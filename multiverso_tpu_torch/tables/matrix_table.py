@@ -47,11 +47,24 @@ ids, rows gathered by K2) and ``add_get_dirty_device`` (``-4``: a row
 add and the dirty Get in one launch of K14, for one in-process
 server). The reference compresses sparse traffic only on a wire,
 which comes with the multi-process transport (A9).
+
+The dense tables' host row path carries the client cache
+(``client_cache.RowCache``, ``-max_get_staleness``): a row Get serves
+its fresh rows locally and fetches only the missing ones, an own Add
+blocks the rows it dirties until its ack, ``prefetch_rows_async`` warms
+the cache and a Get whose missing rows a prefetch in flight covers
+joins it. The cache is never built under ``-sync``. ``-one_bit_push``
+quantizes a dense float32 table's host Add traffic to sign bits and
+two means a server shard (``util.quantization.OneBitFilter``), with the
+quantization error fed back into the worker's next push of the same
+rows; the server decodes it and applies it through its usual rule
+(K3 for host row ids).
 """
 
 from __future__ import annotations
 
 import functools
+import threading
 from dataclasses import dataclass
 from typing import Dict, List, Optional
 
@@ -65,13 +78,19 @@ from ..sharding import mesh as meshlib
 from ..updater import AddOption, GetOption, UpdateEngine, create_rule
 from ..updater.engine import bucket_size, pad_ids
 from ..util.configure import define_bool, get_flag
+from ..util.dashboard import count as count_event
 from ..util.log import CHECK
-from .client_cache import place_rows
+from ..util.quantization import OneBitFilter
+from . import client_cache
+from .client_cache import RowCache, place_rows
 from .table_interface import ServerTable, WorkerTable
 
 define_bool("verify_device_ids", False,
             "read back a fused add's device row-id mirror on its first "
             "use and CHECK it against the host ids")
+define_bool("one_bit_push", False,
+            "1-bit quantize matrix Add traffic (sign bitmap + per-sign "
+            "means, worker-side error feedback)")
 
 _ALL_KEY = np.array([-1], dtype=np.int32)
 # Sparse dirty-row Get whose values reply on the device (host ids).
@@ -82,6 +101,24 @@ _SEGMENTED_KEY = np.array([-3], dtype=np.int32)
 # Fused sparse add + dirty-row Get, one in-process server: a Get whose
 # blobs are [-4, rows, delta, add option, get option(, device rows)].
 _ADD_GET_DIRTY_KEY = np.array([-4], dtype=np.int32)
+
+
+def _onebit_blobs(chunk: np.ndarray):
+    """Encode one server's (error-feedback-adjusted) delta chunk as
+    [sign bits, meta]; meta = [pos_mean, neg_mean, element count].
+    Returns (blobs, residual) — the caller accumulates the residual into
+    its feedback buffer."""
+    encoded, residual = OneBitFilter().encode(chunk)
+    bits, pos_mean, neg_mean, size = encoded
+    meta = np.array([pos_mean, neg_mean, float(size)], np.float64)
+    return [Blob(bits), Blob(meta)], residual
+
+
+def _onebit_decode(bits_blob: Blob, meta_blob: Blob) -> np.ndarray:
+    meta = meta_blob.as_array(np.float64)
+    return OneBitFilter().decode(
+        (bits_blob.as_array(np.uint8), float(meta[0]),
+         float(meta[1]), int(meta[2])))
 
 
 def row_offsets(num_row: int, num_servers: int) -> List[int]:
@@ -145,6 +182,13 @@ class MatrixWorker(WorkerTable):
         # thread (a CHECK inside the server actor would only be logged).
         self._updater_stateless = create_rule(updater_type,
                                               self.dtype).stateless
+        # 1-bit push quantization (dense float32 tables): only host
+        # pushes quantize, pulls stay full precision. The error-feedback
+        # buffer is table-shaped, made at the first push.
+        self._one_bit = (not self.is_sparse
+                         and self.dtype == np.float32
+                         and bool(get_flag("one_bit_push")))
+        self._residual: Optional[np.ndarray] = None
         self._offsets = row_offsets(self.num_row, self._zoo.num_servers)
         self._num_server = len(self._offsets) - 1  # actual servers used
         self._row_length = max(self.num_row // self._num_server, 1)
@@ -160,6 +204,44 @@ class MatrixWorker(WorkerTable):
         # Host ids of each server's device dirty-row reply (-2, -4).
         self._device_shard_ids: Optional[Dict[int, np.ndarray]] = None
         self._mirror_verified = False  # -verify_device_ids: once a table
+        # Client cache: row-granular, DENSE host-path row Gets only.
+        # Sparse tables are excluded (their dirty-row protocol is a
+        # server-tracked staleness cache) and device replies bypass it.
+        # Built on the dense path whatever the bound (bound 0 is an
+        # inactive pass-through, so a live retune can widen it), never
+        # under -sync: a locally served Get would bypass the vector
+        # clocks.
+        self._row_cache: Optional[RowCache] = None
+        if not self.is_sparse and not get_flag("sync", False):
+            self._row_cache = RowCache(
+                client_cache.staleness_bound(), self._server_of_rows,
+                max(self._zoo.num_servers, self._num_server),
+                self._version_tracker)
+            self._caches.append(self._row_cache)
+        # In-flight prefetches: msg_id -> sorted unique ids being
+        # fetched; _pf_by_key dedups identical prefetches; _pf_joined
+        # holds Gets deferred onto an in-flight prefetch. Prefetches and
+        # joins issue on the requester's thread, completion runs on the
+        # worker actor's.
+        self._pf_lock = threading.Lock()
+        self._pf_rows: Dict[int, np.ndarray] = {}
+        self._pf_by_key: Dict[bytes, int] = {}
+        self._pf_joined: Dict[int, List] = {}
+
+    def _live_cache(self) -> Optional[RowCache]:
+        """The row cache when ACTIVE (live bound > 0), else None: the
+        gate of every read-path use."""
+        cache = self._row_cache
+        if cache is not None and cache.active:
+            return cache
+        return None
+
+    def observed_versions(self) -> Dict[int, int]:
+        """Latest shard version this worker has OBSERVED, per server id
+        (-1 before any reply): what the client cache measures staleness
+        against."""
+        return {s: self._version_tracker.latest(s)
+                for s in range(self._num_server)}
 
     def _server_of_rows(self, rows: np.ndarray) -> np.ndarray:
         return np.minimum(rows // self._row_length, self._num_server - 1)
@@ -206,7 +288,93 @@ class MatrixWorker(WorkerTable):
         # repeat; every requested position gets its id's row).
         self._dest_rows = row_ids
         self._device_shards = None
+        if self._live_cache() is not None:
+            # Partial-hit serve: fresh rows fill their positions
+            # locally; only the MISSING unique rows are requested (the
+            # reply placement handles subset keys).
+            missing = self._row_cache.fetch_into(row_ids, out)
+            if missing.size == 0:
+                return self._local_done()
+            # Missing rows a prefetch in flight is already fetching:
+            # defer onto its completion instead of a second request.
+            joined = self._join_inflight(missing, row_ids, out)
+            if joined is not None:
+                return joined
+            return self._request_get(Blob(missing.view(np.uint8)))
         return self._request_get(Blob(row_ids.view(np.uint8)))
+
+    # -- client-cache prefetch + in-flight Get dedup --
+    def prefetch_rows_async(self, row_ids) -> int:
+        """Warm the client cache for ``row_ids`` without touching the
+        one-Get-in-flight destination registers: the reply routes into
+        the cache, so a later ``get_rows`` for (a subset of) these rows
+        hits locally or joins the fetch in flight. Returns a request id
+        (``wait`` is optional). A no-op when the cache is inactive
+        (``-max_get_staleness=0``, or ``-sync``)."""
+        if self._live_cache() is None:
+            return self._local_done()
+        rows = np.unique(np.ascontiguousarray(
+            row_ids, dtype=np.int32).reshape(-1))
+        self._check_row_ids(rows)
+        # Fetch only what the cache is missing.
+        rows = self._row_cache.missing_of(rows)
+        if rows.size == 0:
+            return self._local_done()
+        key = rows.tobytes()
+        with self._pf_lock:
+            existing = self._pf_by_key.get(key)
+            if existing is not None:
+                return existing  # identical prefetch already in flight
+            msg_id = self._new_request()
+            self._pf_rows[msg_id] = rows
+            self._pf_by_key[key] = msg_id
+            # Registered BEFORE the send: the completion sweep must find
+            # this prefetch however fast the reply lands.
+            self.add_completion(msg_id, self._on_prefetch_done)
+        count_event(client_cache.PREFETCH)
+        self._send_request(MsgType.Request_Get,
+                           [Blob(rows.view(np.uint8))], msg_id)
+        return msg_id
+
+    def _join_inflight(self, missing: np.ndarray, row_ids: np.ndarray,
+                       out: np.ndarray) -> Optional[int]:
+        """If a prefetch in flight covers every MISSING row, defer this
+        Get onto it: completion re-serves from the cache, requesting
+        only what still is not there. Either way the returned id
+        completes."""
+        with self._pf_lock:
+            if not self._pf_rows:
+                return None
+            for pf_id, pf_rows in self._pf_rows.items():
+                if np.isin(missing, pf_rows).all():
+                    msg_id = self._new_request()
+                    self._pf_joined.setdefault(pf_id, []).append(
+                        (msg_id, row_ids, out))
+                    count_event(client_cache.JOIN)
+                    return msg_id
+        return None
+
+    def _on_prefetch_done(self, pf_id: int) -> None:
+        """Prefetch completion (worker actor thread): retire the entry
+        and settle every joined Get — from the cache for whatever landed
+        and survived, with a request only for rows still missing (an
+        invalidation raced the prefetch)."""
+        with self._pf_lock:
+            rows = self._pf_rows.pop(pf_id, None)
+            if rows is not None:
+                self._pf_by_key.pop(rows.tobytes(), None)
+            joined = self._pf_joined.pop(pf_id, [])
+        for msg_id, req_rows, out in joined:
+            # count_stats=False: the joined Get counted its miss at
+            # issue time.
+            missing = self._row_cache.fetch_into(req_rows, out,
+                                                 count_stats=False)
+            if missing.size == 0:
+                self.notify(msg_id)
+            else:
+                self._send_request(MsgType.Request_Get,
+                                   [Blob(missing.view(np.uint8))],
+                                   msg_id)
 
     def get_rows_device(self, row_ids) -> torch.Tensor:
         """Device-resident row pull: ``[k, num_col]`` as a tensor on the
@@ -474,8 +642,27 @@ class MatrixWorker(WorkerTable):
             delta = np.ascontiguousarray(delta, self.dtype).reshape(-1)
         CHECK(int(np.prod(tuple(delta.shape))) == self.num_row * self.num_col,
               "bad delta size")
-        return self.add_async_raw(Blob(_ALL_KEY.view(np.uint8)),
-                                  Blob(delta), self._option_blob(option))
+        tok = self._cache_begin_add(None)
+        mid = self.add_async_raw(Blob(_ALL_KEY.view(np.uint8)),
+                                 Blob(delta), self._option_blob(option))
+        self._cache_resolve_on(mid, tok)
+        return mid
+
+    def _cache_begin_add(self, row_ids: Optional[np.ndarray]):
+        """Block the client-cache slots this Add dirties (None = whole
+        table) until its ack resolves them — read-your-writes. Not gated
+        on the cache being active: an inactive cache still fences its
+        shard floors on the ack (``RowCache.begin_add``)."""
+        cache = self._row_cache
+        if cache is None:
+            return None
+        return cache.begin_add(row_ids)
+
+    def _cache_resolve_on(self, msg_id: int, token) -> None:
+        if token is not None:
+            self.add_completion(
+                msg_id,
+                lambda _mid, tok=token: self._row_cache.finish_add(tok))
 
     def add_rows(self, row_ids, delta,
                  option: Optional[AddOption] = None) -> None:
@@ -505,21 +692,61 @@ class MatrixWorker(WorkerTable):
                   "bad device delta shape")
             CHECK(row_ids.dtype == torch.int32,
                   "device row ids must be int32")
-            return self.add_async_raw(Blob(row_ids), Blob(delta),
-                                      self._option_blob(option))
+            # Device ids cannot be enumerated without a host sync: the
+            # whole cache blocks until the ack.
+            tok = self._cache_begin_add(None)
+            mid = self.add_async_raw(Blob(row_ids), Blob(delta),
+                                     self._option_blob(option))
+            self._cache_resolve_on(mid, tok)
+            return mid
         row_ids = np.ascontiguousarray(row_ids, dtype=np.int32).reshape(-1)
         self._check_row_ids(row_ids)
+        if self._one_bit:
+            # The error feedback's gather and write-back break on
+            # duplicates; the chunk encoder's CHECK would fire inside the
+            # worker actor, so the caller raises here instead.
+            CHECK(np.unique(row_ids).size == row_ids.size,
+                  "error-feedback row pushes need unique row ids")
         if not is_device_array(delta):
             delta = np.ascontiguousarray(delta, self.dtype).reshape(-1)
         CHECK(int(np.prod(tuple(delta.shape))) == row_ids.size * self.num_col,
               "bad delta size")
-        return self.add_async_raw(Blob(row_ids.view(np.uint8)),
-                                  Blob(delta), self._option_blob(option))
+        tok = self._cache_begin_add(row_ids)
+        mid = self.add_async_raw(Blob(row_ids.view(np.uint8)),
+                                 Blob(delta), self._option_blob(option))
+        self._cache_resolve_on(mid, tok)
+        return mid
 
     def _option_blob(self, option: Optional[AddOption]) -> Blob:
         if option is None:
             option = AddOption(worker_id=max(self._zoo.worker_id, 0))
         return option.to_blob()
+
+    def _onebit_chunk(self, chunk, lo: int, hi: int,
+                      rows: Optional[np.ndarray] = None) -> List[Blob]:
+        """One server's 1-bit Add chunk with error feedback: the previous
+        quantization error of these slots (rows ``lo:hi``, or ``rows``)
+        is folded into the delta before encoding, and the new error
+        replaces it. Row pushes need UNIQUE row ids: a repeated row
+        would gather its residual once an occurrence and keep only the
+        last write-back."""
+        if self._residual is None:
+            self._residual = np.zeros((self.num_row, self.num_col),
+                                      np.float32)
+        chunk2d = np.asarray(chunk).reshape(-1, self.num_col)
+        if rows is None:
+            res = self._residual[lo:hi]
+        else:
+            CHECK(np.unique(rows).size == rows.size,
+                  "error-feedback row pushes need unique row ids")
+            res = self._residual[rows]
+        blobs, residual = _onebit_blobs((chunk2d + res).reshape(-1))
+        residual = residual.reshape(chunk2d.shape)
+        if rows is None:
+            self._residual[lo:hi] = residual
+        else:
+            self._residual[rows] = residual
+        return blobs
 
     def partition(self, blobs, msg_type) -> Dict[int, List[Blob]]:
         if blobs[0].on_device:
@@ -562,13 +789,19 @@ class MatrixWorker(WorkerTable):
             # Values may arrive flat [R*C] (host callers) or row-shaped
             # [R, C] (tensor deltas); slice in whichever layout they came.
             row_shaped = values is not None and len(values.shape) == 2
+            one_bit = (is_add and self._one_bit and values is not None
+                       and not is_device_array(values))
             for sid in range(self._num_server):
                 shard = [blobs[0]]
                 if values is not None:
                     lo, hi = self._offsets[sid], self._offsets[sid + 1]
                     chunk = values[lo:hi] if row_shaped \
                         else values[lo * self.num_col:hi * self.num_col]
-                    shard.append(Blob(chunk))
+                    if one_bit:
+                        shard.extend(self._onebit_chunk(
+                            np.asarray(chunk), lo, hi))
+                    else:
+                        shard.append(Blob(chunk))
                     if len(blobs) == 3:
                         shard.append(blobs[2])
                 elif len(blobs) == 2:  # sparse Get: GetOption rides along
@@ -602,7 +835,12 @@ class MatrixWorker(WorkerTable):
                 lo, hi = np.searchsorted(dest, [sid, sid + 1])
                 shard.append(Blob(dev_values[lo:hi]))
             elif values is not None:
-                shard.append(Blob(np.ascontiguousarray(values[mask])))
+                chunk = np.ascontiguousarray(values[mask])
+                if self._one_bit:
+                    shard.extend(self._onebit_chunk(chunk, 0, 0,
+                                                    rows=keys[mask]))
+                else:
+                    shard.append(Blob(chunk))
             if is_add and len(blobs) == 3:
                 shard.append(blobs[2])
             elif not is_add and len(blobs) == 2:  # sparse GetOption
@@ -612,6 +850,18 @@ class MatrixWorker(WorkerTable):
 
     # -- replies (ref: matrix_table.cpp:317-341) --
     def process_reply_get(self, reply_blobs: List[Blob]) -> None:
+        if (self._reply_msg_id >= 0
+                and self._pf_rows.get(self._reply_msg_id) is not None):
+            # Prefetch reply shard: one server's [keys, values] segment
+            # goes into the cache ONLY — the destination registers belong
+            # to whatever real Get may be in flight.
+            keys = reply_blobs[0].as_array(np.int32)
+            values = reply_blobs[1].as_array(self.dtype).reshape(
+                keys.size, self.num_col)
+            if self._row_cache is not None:
+                self._row_cache.store(keys, values, self._reply_version,
+                                      self._reply_server)
+            return
         if reply_blobs[0].on_device:
             # Device-key reply: values shaped row_ids.shape + (num_col,),
             # still on the card — keyed by the origin server id.
@@ -652,6 +902,11 @@ class MatrixWorker(WorkerTable):
             return
         values = reply_blobs[1].as_array(self.dtype).reshape(
             keys.size, self.num_col)
+        if self._row_cache is not None and self._dest_rows is not None:
+            # Every real row Get refreshes the cache (and, through the
+            # reply context, the version tracker).
+            self._row_cache.store(keys, values, self._reply_version,
+                                  self._reply_server)
         if self._dest_rows is None:
             # Sparse whole-table Get: dirty rows land at their global ids.
             self._dest[keys] = values
@@ -673,6 +928,9 @@ class MatrixServer(ServerTable):
         self.num_col = int(num_col)
         self.num_row = int(num_row)
         self.is_sparse = bool(is_sparse)
+        self._one_bit = (not self.is_sparse
+                         and self.dtype == np.float32
+                         and bool(get_flag("one_bit_push")))
         offsets = row_offsets(int(num_row), self._zoo.num_servers)
         sid = self._zoo.server_id
         self.server_id = sid
@@ -720,8 +978,17 @@ class MatrixServer(ServerTable):
 
     # -- Add (ref: matrix_table.cpp:386-418)
     def process_add(self, blobs: List[Blob]) -> None:
-        CHECK(len(blobs) in (2, 3), "add needs [keys, values(, option)]")
-        option = AddOption.from_blob(blobs[2]) if len(blobs) == 3 else None
+        if self._one_bit and len(blobs) == 4 and not blobs[1].on_device:
+            # 1-bit layout: exactly [keys, sign bits, meta, option]
+            # (matrix adds always carry an option blob); device deltas
+            # stay full precision and arrive as 3 blobs.
+            option = AddOption.from_blob(blobs[3])
+            blobs = [blobs[0], Blob(_onebit_decode(blobs[1], blobs[2]))]
+        else:
+            CHECK(len(blobs) in (2, 3),
+                  "add needs [keys, values(, option)]")
+            option = AddOption.from_blob(blobs[2]) \
+                if len(blobs) == 3 else None
         if blobs[0].on_device:
             # Device-key scatter-add: ids and delta never touch the host.
             # Several servers: every server receives the full request (or

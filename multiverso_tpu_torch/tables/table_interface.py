@@ -21,21 +21,29 @@ hanging on a reply that never comes.
 
 ``ServerTable`` is ``Serializable`` — ``store``/``load`` stream the
 shard state in the reference's byte format
-(ref: include/multiverso/table_interface.h:61-75). Retries after a lost
-peer, request timeouts, client caches, replicas and elastic resharding
-are later items of the port.
+(ref: include/multiverso/table_interface.h:61-75).
+
+The client cache's plumbing (``tables/client_cache.py``): the version
+every reply carries feeds a per-server ``VersionTracker``; a version
+regression (a restarted server) invalidates the registered caches and
+bumps the data generation; an Add ack also raises this worker's
+read-your-writes floor for its shard; a request served locally
+completes at once (``_local_done``), and completion callbacks
+(``add_completion``) resolve a cache's blocked slots once the ack's
+version has landed. Retries after a lost peer, request timeouts,
+replicas and elastic resharding are later items of the port.
 """
 
 from __future__ import annotations
 
 import threading
-from typing import Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
 from ..core.blob import Blob
 from ..core.message import Message, MsgType, stamp_trace
 from ..runtime import actor as actors
 from ..runtime.zoo import ClusterAborted, current_zoo
-from ..util import tracing
+from ..util import log, tracing
 from ..util.waiter import Waiter
 from .client_cache import VersionTracker
 
@@ -61,8 +69,24 @@ class WorkerTable:
         self._waitings: Dict[int, Waiter] = {}
         self._errors: Dict[int, str] = {}
         self._mutex = threading.Lock()
-        # Per-server latest-version tracking, fed from reply stamps.
+        # Client-cache plumbing: per-server latest-version tracking and
+        # the reply context the worker actor sets around
+        # process_reply_get (server id, version stamp, request id) so
+        # subclasses can attribute replies without a signature change.
         self._version_tracker = VersionTracker()
+        #: Client caches registered by subclasses — invalidated when a
+        #: serving shard changes GENERATION (a restarted server's
+        #: version counter starts again).
+        self._caches: List = []
+        #: Data-generation counter for DERIVED read-side caches: bumped
+        #: on every event that makes version arithmetic against the old
+        #: shard counters meaningless (a server-generation regression).
+        #: Written on the worker actor thread — int assignment.
+        self._data_generation = 0
+        self._on_complete: Dict[int, List[Callable]] = {}
+        # Read-your-writes floors per server shard: the latest version
+        # OUR OWN Add acks carried (worker actor thread only).
+        self._add_floor: Dict[int, int] = {}
         self._reply_server = -1
         self._reply_version = -1
         self._reply_msg_id = -1
@@ -89,6 +113,10 @@ class WorkerTable:
 
     def _send_request(self, msg_type: MsgType, blobs: Sequence[Blob],
                       msg_id: int) -> None:
+        """Build and route a request message for an ALREADY-allocated
+        id — the prefetch machinery allocates first (so reply routing
+        state can be registered before anything is in flight) and sends
+        later (possibly from a completion callback)."""
         msg = Message(src=self._zoo.rank, dst=-1, msg_type=msg_type,
                       table_id=self.table_id, msg_id=msg_id)
         # Distributed-trace sampling at request issue (util/tracing.py);
@@ -102,6 +130,14 @@ class WorkerTable:
         for blob in blobs:
             msg.push(blob)
         self._zoo.send_to(actors.WORKER, msg)
+
+    def _local_done(self) -> int:
+        """A request satisfied locally (cache hit, no-op prefetch): a
+        normal request id, completed at once, so an async caller's
+        ``wait`` returns immediately."""
+        msg_id = self._new_request()
+        self.notify(msg_id)
+        return msg_id
 
     def _new_request(self) -> int:
         # A request made AFTER an abort would wait on a reply that can
@@ -174,6 +210,8 @@ class WorkerTable:
         if waiter is not None:
             waiter.reset(num_wait)
             if num_wait <= 0:
+                # Re-armed to zero (empty partition): completion
+                # callbacks must still fire or cache blocks strand.
                 self._complete_if_done(msg_id, waiter)
 
     def notify(self, msg_id: int) -> None:
@@ -186,7 +224,8 @@ class WorkerTable:
 
     def _complete_if_done(self, msg_id: int, waiter: Waiter) -> None:
         """Reap the completed waiter (fire-and-forget async adds would
-        otherwise leak one per request) and close its trace span."""
+        otherwise leak one per request), close its trace span and run
+        its completion callbacks exactly once."""
         if not waiter.done:
             return
         opened = self._trace_open.pop(msg_id, None)
@@ -198,10 +237,68 @@ class WorkerTable:
         with self._mutex:
             if self._waitings.get(msg_id) is waiter:
                 self._waitings.pop(msg_id, None)
+            callbacks = self._on_complete.pop(msg_id, None)
+        for fn in callbacks or ():
+            try:
+                fn(msg_id)
+            except Exception:  # noqa: BLE001 - a callback must not
+                # poison the worker actor's reply loop
+                log.error("table %d: completion callback for request "
+                          "%d raised", self.table_id, msg_id)
+                import traceback
+                traceback.print_exc()
 
-    # -- reply context (driven by the worker actor) --
+    def add_completion(self, msg_id: int,
+                       fn: Callable[[int], None]) -> None:
+        """Run ``fn(msg_id)`` when the request completes (all shard
+        replies in). If it already completed, run it now — the check
+        and the registration share the mutex with the completion sweep,
+        so a racing reply cannot orphan a callback."""
+        run_now = False
+        with self._mutex:
+            if msg_id in self._waitings:
+                self._on_complete.setdefault(msg_id, []).append(fn)
+            else:
+                run_now = True
+        if run_now:
+            fn(msg_id)
+
+    # -- client-cache version plumbing (driven by the worker actor) --
     def note_version(self, server_id: int, version: int) -> None:
+        """Record a version stamp observed on a reply from a server. A
+        version REGRESSION (a reply below the shard's latest observed)
+        means the server restarted with an older state: re-anchor the
+        tracker and invalidate every registered cache for that shard."""
+        if self._version_tracker.regressed(server_id, version):
+            log.error("table %d: server shard %d version regressed "
+                      "(%d -> %d): server generation change, "
+                      "invalidating client caches for that shard",
+                      self.table_id, server_id,
+                      self._version_tracker.latest(server_id), version)
+            self._version_tracker.reset(server_id, version)
+            self._data_generation += 1
+            for cache in self._caches:
+                cache.invalidate_server(server_id)
         self._version_tracker.note(server_id, version)
+
+    def note_add_ack(self, server_id: int, version: int) -> None:
+        """An Add ack from a server shard: raises this worker's
+        read-your-writes floor for that shard, besides the normal
+        version observation."""
+        if version >= 0:
+            floor = self._add_floor.get(server_id, -1)
+            if version > floor:
+                self._add_floor[server_id] = version
+        self.note_version(server_id, version)
+
+    def add_floor(self, server_id: int) -> int:
+        return self._add_floor.get(server_id, -1)
+
+    def cache_generation(self) -> int:
+        """Current data generation (see ``_data_generation``): derived
+        read-side caches compare it with the value they recorded at
+        build time and rebuild on any difference."""
+        return self._data_generation
 
     def _begin_reply(self, server_id: int, version: int,
                      msg_id: int) -> None:

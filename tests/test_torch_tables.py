@@ -162,7 +162,7 @@ def test_host_requests_fuse_on_the_server():
 @pytest.mark.parametrize("argv", [["-serving_port=1"], ["-machine_file=m.txt"],
                                   ["-snapshot_interval_s=1"],
                                   ["-ps_role=worker"],
-                                  ["-max_get_staleness=4"]])
+                                  ["-autotune_interval_s=1"]])
 def test_unported_flags_raise(argv):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tmv.init(argv, device="cpu")

@@ -191,8 +191,9 @@ def test_port_trains_with_its_own_draws(tmp_path):
 def test_unported_modes_raise(tmp_path):
     # CBOW, HS, per-pair and G > 1 run now (tests/test_torch_ps_modes.py),
     # segmented keys on one server are a no-op as in the reference (they
-    # run over several: tests/test_torch_segmented.py); the host-batch
-    # arm that needs the multi-process runtime (A9) still raises.
+    # run over several: tests/test_torch_segmented.py), and the host-batch
+    # step's host-buffer arm trains (tests/test_torch_client_cache.py
+    # holds it against the device arm and the reference).
     path = tmp_path / "corpus.txt"
     write_topic_corpus(path, n_sentences=50)
     d = Dictionary.build(str(path), min_count=1)
@@ -206,8 +207,9 @@ def test_unported_modes_raise(tmp_path):
                                         segment_keys=True)
         assert not trainer._segment_keys and trainer._seg_ids is None
         model._device_path = False
-        with pytest.raises(NotImplementedError, match="A9"):
-            model.train_batches(iter([model.prepare(next(
-                iter_pair_batches(d, tok, batch_size=64, window=3)))]))
+        loss, pairs = model.train_batches(iter([model.prepare(next(
+            iter_pair_batches(d, tok, batch_size=64, window=3,
+                              cbow=True)))]))
+        assert np.isfinite(loss) and pairs > 0
     finally:
         tmv.shutdown()
